@@ -2,6 +2,11 @@
 
 The optional native helper (gpim_tpu/native/_spatial.so) is built on demand
 by gpim_tpu/native/build.sh; the library falls back to numpy without it.
+
+gpim_tpu_torch, the PyTorch/CUDA port, ships beside it with its CUDA source
+(gpim_tpu_torch/csrc/*.cu, compiled by nvcc at first use on a CUDA
+machine). The port needs torch, which the "torch" extra names; the install
+requirements stay those of gpim_tpu.
 """
 
 import os
@@ -33,7 +38,8 @@ setup(
     long_description=open("README.md").read(),
     long_description_content_type="text/markdown",
     packages=find_packages(exclude=("tests",)),
-    package_data={"gpim_tpu.native": ["*.cpp", "build.sh"]},
+    package_data={"gpim_tpu.native": ["*.cpp", "build.sh"],
+                  "gpim_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax>=0.4.30",
@@ -42,6 +48,7 @@ setup(
         "scipy>=1.10",
         "matplotlib>=3.5",
     ],
+    extras_require={"torch": ["torch>=2.1"]},
     cmdclass={"build_py": BuildWithNative},
     license="MIT",
     classifiers=[
