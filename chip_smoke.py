@@ -13,17 +13,22 @@ its final line):
 2. build   - compile csrc/gram_kernels.cu with nvcc; print the seconds.
 3. kernels - K1/K2/K3 against their plain versions (evaluated in float64
              on the same inputs), in float32 and float64, at the flagship's
-             shapes, with the tolerances below; warm median times (CUDA
-             events) of each kernel and its plain version.
+             shapes, with the tolerances below; float32 device time per call
+             of each kernel, its plain version and (K1) torch.cdist, from a
+             warm loop of launches (see _time_ms), beside the kernel's bound.
 4. flagship - reconstructor(X, R, X_full, kernel="RBF", iterations=250,
-             precision="single", use_gpu=True).run() on the 128x128 spiral
+             precision="single").run() on the 128x128 spiral
              (examples/_data.spiral_scan, n = 6144 padded training rows,
-             16384 test points), cold then warm; rmse at the observed
-             pixels < 0.1, no NaN, every kernel launched, every model
-             tensor on the card.
+             16384 test points), cold then warm, built without use_gpu;
+             rmse at the observed pixels < 0.1, no NaN, every kernel
+             launched, every model tensor on the card.
 5. cross-check - the flagship in float64 (at the float32 jitter) on the
              card against the float32 run; and a small problem on the card
              against the CPU path.
+6. profile - torch.profiler over PROFILE_STEPS warm float32 training steps
+             of the flagship: device ms per step by kernel and the device's
+             idle share (printed; a profiler that records no device time
+             prints "not measured" and fails nothing).
 
 Prints the kernels as one JSON line, then as its last line
 {"ok": true, "device": {...}}.
@@ -31,7 +36,7 @@ Prints the kernels as one JSON line, then as its last line
 
 import json
 import os
-import statistics
+import re
 import subprocess
 import sys
 import time
@@ -43,7 +48,10 @@ sys.path.insert(0, _HERE)
 sys.path.insert(0, os.path.join(_HERE, "examples"))
 
 ITERATIONS = 250
-TIMING_REPS = 20
+TIMING_REPS = 50
+# NVIDIA H100 SXM data sheet: HBM3 rate, and peaks outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 SOURCE = "gpim_tpu_torch/csrc/gram_kernels.cu"
 # Normalized max error |kernel - plain_f64| / scale, set beforehand from
 # the rounding of each kernel's arithmetic (see gram_kernels docstrings).
@@ -62,6 +70,7 @@ TOL = {
 CROSS_TOL = {"mean_atol": 2e-3, "sd_atol": 2e-3, "ls_rtol": 5e-2,
              "noise_atol": 1e-6}
 SMALL_RTOL = 1e-7          # small problem, CUDA vs CPU, float64
+PROFILE_STEPS = 10
 
 
 def log(msg):
@@ -112,8 +121,19 @@ def phase_device():
 def phase_build():
     from gpim_tpu_torch.ops import _build
     res = _build.build()
+    # ptxas -v: one line per kernel (mangled name from the kernel's own
+    # name on, so the template arguments show; registers, spills)
+    name = spill = ""
     for line in res.log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if "Function properties for" in line:
+            name = re.sub(r"^.*?\d+(?=(sqdist|masked_system|rbf_bwd)_kernel)",
+                          "", line.split(" for ", 1)[1].strip())
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            log("[build] %s: %s; %s" % (name[:40], line.split(":", 1)[1]
+                                        .strip(), spill))
+        elif "error" in line:
             log("[build] " + line.strip())
     _build.load_library()
     log("[build] %s built in %.2f s" % (res.path.name, res.seconds))
@@ -121,20 +141,36 @@ def phase_build():
 
 
 def _time_ms(fn, reps=TIMING_REPS):
-    """Warm median of ``reps`` runs, CUDA events around each."""
+    """Device ms per call: CUDA events around a warm loop of ``reps``
+    calls, one synchronise at its end, the window divided by ``reps``. The
+    wrappers' host work (checks, allocation, the ctypes call) then overlaps
+    the device's, as it does in the training loop. Every timed call moves
+    >= 100 MB, twice the card's 50 MB L2, so each call finds cold what the
+    one before it touched, as the training loop does."""
     import torch
     for _ in range(3):
         fn()
-    times = []
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(name, n, d, m=None, dtype_name="float32"):
+    """(least ms, "bytes" or "operations") the card could take for one call
+    at these shapes: the larger of the bytes it must move over the memory
+    rate and its operations over the peak rate of their type."""
+    from gpim_tpu_torch.ops.gram_kernels import min_traffic
+    itemsize = 4 if dtype_name == "float32" else 8
+    read, written, ops = min_traffic(name, n, d, m, itemsize)
+    t_bytes = (read + written) / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _norm_err(out, ref, scale):
@@ -198,6 +234,11 @@ def phase_kernels(R, X, X_full):
             rec["sqdist"]["ms"] = _time_ms(lambda: gk.sqdist(A1, Xs))
             rec["sqdist"]["plain_ms"] = _time_ms(
                 lambda: gk.sqdist_plain(A1, Xs))
+            # the nearest single call; it returns the root of K1's output
+            rec["sqdist"]["library_ms"] = _time_ms(
+                lambda: torch.cdist(A1, Xs))
+            rec["sqdist"]["bound"] = bound("sqdist", len(A1), Xs.shape[1],
+                                           m=n)
 
         # K2 at the training system shape, all three kernel families
         vt, njt, at = t(v), t(noise + jitter), t(rq_alpha)
@@ -225,6 +266,9 @@ def phase_kernels(R, X, X_full):
             rec["masked_system"]["plain_ms"] = _time_ms(
                 lambda: gk.masked_system_plain(Xs, mask, vt, njt,
                                                kernel="RBF"))
+            rec["masked_system"]["library_ms"] = None
+            rec["masked_system"]["bound"] = bound("masked_system", n,
+                                                  Xs.shape[1])
 
         # K3 on an SPD Ainv built from the real masked RBF system
         Kt, A = gk.masked_system(Xs, mask, vt, njt, kernel="RBF")
@@ -255,14 +299,18 @@ def phase_kernels(R, X, X_full):
             rec["rbf_bwd_reductions"]["plain_ms"] = _time_ms(
                 lambda: gk.rbf_bwd_reductions_plain(Ainv, Kt, alpha, mask,
                                                     Xr))
+            rec["rbf_bwd_reductions"]["library_ms"] = None
+            rec["rbf_bwd_reductions"]["bound"] = bound(
+                "rbf_bwd_reductions", n, Xr.shape[1])
         report[dname] = rec
         del Kt, A, L, V, Ainv, absW
         torch.cuda.empty_cache()
     for name, r in report["float32"].items():
-        log("[kernels] %-19s float32 kernel %.4f ms, plain %.4f ms "
-            "(warm median of %d)" % (name, r["ms"], r["plain_ms"],
-                                    TIMING_REPS))
-    return report
+        log("[kernels] %-19s float32 kernel %.4f ms, plain %.4f ms, bound "
+            "%.4f ms (%s), %.0f%% of bound (warm loop of %d)"
+            % (name, r["ms"], r["plain_ms"], r["bound"][0], r["bound"][1],
+               100 * r["bound"][0] / r["ms"], TIMING_REPS))
+    return report["float32"]
 
 
 def _reset_launches():
@@ -280,9 +328,9 @@ def _read_launches():
 def _run_flagship(R, X, X_full, precision, label, **kwargs):
     import torch
     from gpim_tpu_torch import reconstructor
+    # no use_gpu: the card is the default device
     model = reconstructor(X, R, X_full, kernel="RBF", iterations=ITERATIONS,
-                          precision=precision, use_gpu=True, verbose=0,
-                          **kwargs)
+                          precision=precision, verbose=0, **kwargs)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     mean, sd, hp = model.run()
@@ -322,7 +370,8 @@ def phase_flagship(R, X, X_full):
     tensors = (list(model.u.values()) + list(model._bounds().values())
                + [model._Xd, model._yd, model._maskd])
     if not all(t.is_cuda for t in tensors):
-        raise AssertionError("a model tensor is not on the card")
+        raise AssertionError("a model built without use_gpu has a tensor "
+                             "that is not on the card")
     log("[flagship] peak device memory %.1f MiB" % (
         torch.cuda.max_memory_allocated() / 2 ** 20))
     return launches, (mean, sd, hp)
@@ -374,6 +423,67 @@ def phase_cross_check(R, X, X_full, f32):
     return diffs
 
 
+def phase_profile(R, X, X_full):
+    """Device time per warm training step, by kernel name, and the share of
+    the host's train() window in which the device ran no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from gpim_tpu_torch import reconstructor
+    model = reconstructor(X, R, X_full, kernel="RBF",
+                          iterations=PROFILE_STEPS, precision="single",
+                          verbose=0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.train()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per_name[e.name] = (per_name.get(e.name, 0.0)
+                                + e.time_range.elapsed_us() / 1e3)
+    busy_ms = sum(per_name.values())
+    if busy_ms == 0.0:
+        log("[profile] the profiler recorded no device time: not measured")
+        return
+    log("[profile] %d warm f32 training steps: %.3f ms a step on the host "
+        "clock, %.3f ms of device time, device idle %.1f%%"
+        % (PROFILE_STEPS, wall_ms / PROFILE_STEPS, busy_ms / PROFILE_STEPS,
+           100.0 * max(0.0, 1.0 - busy_ms / wall_ms)))
+    ranked = sorted(per_name.items(), key=lambda kv: -kv[1])
+    ours = ("sqdist_kernel", "masked_system_kernel", "rbf_bwd_kernel")
+    for i, (name, ms) in enumerate(ranked):
+        if i < 10 or any(k in name for k in ours):
+            log("[profile] %8.4f ms/step %5.1f%%  %s" % (
+                ms / PROFILE_STEPS, 100.0 * ms / busy_ms, name[:100]))
+
+
+def kernel_records(kreport, launches):
+    replaces = {"sqdist": "gpim_tpu/ops/pallas_gram.py:77",
+                "masked_system": "gpim_tpu/ops/pallas_gram.py:186",
+                "rbf_bwd_reductions": "gpim_tpu/ops/pallas_gram.py:283"}
+    out = []
+    for name in ("sqdist", "masked_system", "rbf_bwd_reductions"):
+        r = kreport[name]
+        bound_ms, bound_by = r["bound"]
+        out.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": replaces[name],
+            "launches": launches[name],
+            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / r["ms"],
+            "library_ms": r["library_ms"],
+            "library": ("torch.cdist, the nearest call: it returns the root "
+                        "of this kernel's output" if name == "sqdist"
+                        else None),
+        })
+    return out
+
+
 def main():
     import torch
     phase_device()
@@ -382,18 +492,9 @@ def main():
     kreport = phase_kernels(R, X, X_full)
     launches, f32 = phase_flagship(R, X, X_full)
     phase_cross_check(R, X, X_full, f32)
-
-    replaces = {"sqdist": "gpim_tpu/ops/pallas_gram.py:77",
-                "masked_system": "gpim_tpu/ops/pallas_gram.py:186",
-                "rbf_bwd_reductions": "gpim_tpu/ops/pallas_gram.py:283"}
-    kernels = [{
-        "name": name, "route": "cuda", "source": SOURCE,
-        "replaces": replaces[name], "launches": launches[name],
-        "max_abs_err": kreport["float32"][name]["err"],
-        "ms": kreport["float32"][name]["ms"],
-        "plain_ms": kreport["float32"][name]["plain_ms"],
-    } for name in ("sqdist", "masked_system", "rbf_bwd_reductions")]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    phase_profile(R, X, X_full)
+    print(json.dumps({"kernels": kernel_records(kreport, launches)}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -20,11 +20,18 @@
 namespace {
 
 constexpr int kMaxD = 8;         // largest feature count the kernels take
-constexpr int kTile = 32;        // K1/K2 output tile: kTile rows x kTile cols
-constexpr int kBlockRows = 8;    // K1/K2 block: (kTile, kBlockRows) threads
+constexpr int kTile = 32;        // K1 output tile: kTile rows x kTile cols
+constexpr int kBlockRows = 8;    // K1 block: (kTile, kBlockRows) threads
 constexpr int kRowsPerThread = kTile / kBlockRows;
-constexpr int kWarpsPerBlock = 8;  // K3: one warp per row
-constexpr int kSumThreads = 1024;  // K3 second pass: one block
+constexpr int kSysWarps = 8;     // K2 block: 8 warps ...
+constexpr int kSysRows = 64;     // ... over a tile of 64 rows x 32 V columns
+constexpr int kBwdWarps = 4;     // K3 block: 4 warps ...
+constexpr int kBwdRowsPerWarp = 2;  // ... of 2 rows each
+constexpr int kBwdRows = kBwdWarps * kBwdRowsPerWarp;
+
+// Elements in one 16-byte access: 4 floats or 2 doubles.
+template <typename T>
+constexpr int kVec = 16 / static_cast<int>(sizeof(T));
 
 constexpr int kRBF = 0;
 constexpr int kMatern52 = 1;
@@ -37,14 +44,48 @@ __device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
 __device__ __forceinline__ float dlog1p(float x) { return log1pf(x); }
 __device__ __forceinline__ double dlog1p(double x) { return log1p(x); }
 
-// Stage kTile rows of a row-major (rows, d) matrix into shared memory,
-// zero past the last row and past feature d.
-template <typename T>
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// V consecutive elements: one 16-byte access when V == kVec<T> (the caller
+// guarantees the address is 16-byte aligned), else one scalar access.
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p, T* x) {
+  if constexpr (V == 1) {
+    x[0] = p[0];
+  } else if constexpr (sizeof(T) == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    x[0] = q.x;
+    x[1] = q.y;
+    x[2] = q.z;
+    x[3] = q.w;
+  } else {
+    const double2 q = *reinterpret_cast<const double2*>(p);
+    x[0] = q.x;
+    x[1] = q.y;
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* __restrict__ p, const T* x) {
+  if constexpr (V == 1) {
+    p[0] = x[0];
+  } else if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+    *reinterpret_cast<double2*>(p) = make_double2(x[0], x[1]);
+  }
+}
+
+// Stage ROWS rows of a row-major (rows, d) matrix into shared memory, zero
+// past the last row and past feature d.
+template <int ROWS, typename T>
 __device__ __forceinline__ void stage_rows(const T* __restrict__ src,
                                            int64_t rows, int d, int64_t row0,
                                            T (*dst)[kMaxD]) {
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int e = tid; e < kTile * kMaxD; e += blockDim.x * blockDim.y) {
+  for (int e = tid; e < ROWS * kMaxD; e += blockDim.x * blockDim.y) {
     const int r = e / kMaxD;
     const int k = e % kMaxD;
     const int64_t g = row0 + r;
@@ -93,7 +134,7 @@ __global__ void sqdist_kernel(const T* __restrict__ A, const T* __restrict__ B,
   __shared__ T a_s[kTile][kMaxD];
   const int64_t row0 = static_cast<int64_t>(blockIdx.y) * kTile;
   const int64_t col = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x;
-  stage_rows(A, n, d, row0, a_s);
+  stage_rows<kTile>(A, n, d, row0, a_s);
   T b[kMaxD];
   load_point(B, col, m, d, b);
   __syncthreads();
@@ -107,12 +148,21 @@ __global__ void sqdist_kernel(const T* __restrict__ A, const T* __restrict__ B,
 }
 
 // ---------------------------------------------------------------------------
-// K2: fused masked training system (pallas_gram.py _system_kernel).
-// Same tiling as K1 over the (n, n) output, writing both
+// K2: fused masked training system (pallas_gram.py _system_kernel), writing
 //   Kt = v k(s)  with the diagonal set to exactly v (global row == col),
 //   A  = (m m^T) . (Kt + (noise + jitter) I) + (I - diag m).
-// The scalars (v, noise + jitter, alpha) come from a device buffer, so the
-// caller never copies them to the host.
+// Bound by the 2 n^2 values it writes (302 MB at n = 6144 in f32), so the
+// design serves the stores. A block of 8 warps owns a tile of 64 rows x
+// 32 V columns; each thread owns V neighbouring columns, keeps their points
+// and masks in registers, and writes one 16-byte vector of Kt and one of A
+// per row (V = 4 floats or 2 doubles): a warp stores 512 contiguous bytes
+// of a row per instruction. The tile's 64 row points and masks are staged
+// in shared memory once, and the three scalars (v, noise + jitter, alpha,
+// each a device scalar, so no Adam step copies one to the host) are read
+// once per thread. The diagonal and the (I - diag m) term are decided per
+// element. V = 1 is the scalar instantiation of the same code: the
+// launcher takes it when n is not a multiple of kVec (rows then do not
+// start 16-byte aligned) or an output is misaligned.
 // ---------------------------------------------------------------------------
 template <typename T, int KERNEL>
 __device__ __forceinline__ T kernel_value(T s, T v, T alpha) {
@@ -127,42 +177,59 @@ __device__ __forceinline__ T kernel_value(T s, T v, T alpha) {
   }
 }
 
-template <typename T, int KERNEL>
-__global__ void masked_system_kernel(const T* __restrict__ Xs,
-                                     const T* __restrict__ mask,
-                                     const T* __restrict__ scal,
-                                     T* __restrict__ Kt, T* __restrict__ A,
-                                     int64_t n, int d) {
-  __shared__ T a_s[kTile][kMaxD];
-  __shared__ T m_s[kTile];
-  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * kTile;
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x;
-  stage_rows(Xs, n, d, row0, a_s);
-  if (threadIdx.y == 0) {
+template <typename T, int KERNEL, int V>
+__global__ void __launch_bounds__(kSysWarps * 32)
+    masked_system_kernel(const T* __restrict__ Xs, const T* __restrict__ mask,
+                         const T* __restrict__ variance,
+                         const T* __restrict__ noise_jitter,
+                         const T* __restrict__ rq_alpha, T* __restrict__ Kt,
+                         T* __restrict__ A, int64_t n, int d) {
+  __shared__ T x_s[kSysRows][kMaxD];
+  __shared__ T m_s[kSysRows];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * kSysRows;
+  const int64_t col0 = (static_cast<int64_t>(blockIdx.x) * 32 + lane) * V;
+  stage_rows<kSysRows>(Xs, n, d, row0, x_s);
+  if (threadIdx.x < kSysRows) {
     const int64_t g = row0 + threadIdx.x;
     m_s[threadIdx.x] = g < n ? mask[g] : T(0);
   }
-  T b[kMaxD];
-  load_point(Xs, col, n, d, b);
-  const T v = scal[0];
-  const T noise_jitter = scal[1];
-  const T alpha = scal[2];
-  const T m_col = col < n ? mask[col] : T(0);
-  __syncthreads();
-  if (col >= n) return;
+  T b[V][kMaxD];
+  T m_col[V];
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int r = threadIdx.y + i * kBlockRows;
+  for (int e = 0; e < V; ++e) {
+    load_point(Xs, col0 + e, n, d, b[e]);
+    m_col[e] = col0 + e < n ? mask[col0 + e] : T(0);
+  }
+  const T v = *variance;
+  const T nj = *noise_jitter;
+  const T alpha = KERNEL == kRationalQuadratic ? *rq_alpha : T(0);
+  __syncthreads();
+  // With V > 1, n % V == 0: a thread's V columns are all in range or none.
+  if (col0 >= n) return;
+#pragma unroll 2
+  for (int r = warp; r < kSysRows; r += kSysWarps) {
     const int64_t row = row0 + r;
-    if (row >= n) continue;
-    const bool diag = row == col;
-    const T k = diag ? v : kernel_value<T, KERNEL>(sq_dist(a_s[r], b, d), v,
-                                                   alpha);
+    if (row >= n) break;
+    T a[kMaxD];
+#pragma unroll
+    for (int k = 0; k < kMaxD; ++k) a[k] = x_s[r][k];
     const T m_row = m_s[r];
-    const int64_t off = row * n + col;
-    Kt[off] = k;
-    A[off] = m_row * m_col * (k + (diag ? noise_jitter : T(0))) +
-             (diag ? T(1) - m_row : T(0));
+    T kv[V];
+    T av[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const bool diag = row == col0 + e;
+      const T k = diag ? v : kernel_value<T, KERNEL>(sq_dist(a, b[e], d), v,
+                                                     alpha);
+      kv[e] = k;
+      av[e] = m_row * m_col[e] * (k + (diag ? nj : T(0))) +
+              (diag ? T(1) - m_row : T(0));
+    }
+    const int64_t off = row * n + col0;
+    store_vec<T, V>(Kt + off, kv);
+    store_vec<T, V>(A + off, av);
   }
 }
 
@@ -171,11 +238,23 @@ __global__ void masked_system_kernel(const T* __restrict__ Xs,
 // With W = (Ainv - a a^T) . (m m^T) . Kt:
 //   rw_i = sum_j W_ij,  WX = W @ X,  dg_i = Ainv_ii m_i^2,
 //   S1 = sum_i rw_i,    diagsum = sum_i dg_i.
-// The TPU kernel carried row sums across its sequential column grid; Hopper
-// blocks run in no order, so one warp owns one row: its lanes stride over
-// the columns (coalesced reads of Ainv and Kt), keep rw and the d entries of
-// WX in registers and reduce them with shuffles. A second one-block kernel
-// sums rw and dg. No atomics: the f32 result is the same in every run.
+// Bound by the 2 n^2 values it reads (Ainv and Kt, 302 MB at n = 6144 in
+// f32), so the design serves the loads, and reads each element of both
+// once (Ainv from a gemm is not bitwise symmetric, so no half is skipped).
+// The TPU kernel carried row sums across its sequential column grid;
+// Hopper blocks run in no order, so a warp owns whole rows. Each warp takes
+// 2 rows at once: per step a lane loads one 16-byte vector of each of its
+// rows of Ainv and Kt (V = 4 floats or 2 doubles; 2 KB a warp, from 4
+// independent loads) and one of the column side (alpha, mask and the V
+// points of X, d a template argument so those stay in registers), which
+// the 2 rows then share. Row sums stay in registers and meet in shuffles.
+// The scalar sums come from the same launch: each block writes the sums of
+// its rows' rw and dg, and the last block to finish (a counter in device
+// memory, after a __threadfence) adds the blocks' sums in block order and
+// resets the counter. The counter is the only atomic: every sum has a
+// fixed order, so the f32 result is the same in every run. V = 1 is the
+// scalar instantiation, taken for n not a multiple of kVec or a misaligned
+// operand.
 // ---------------------------------------------------------------------------
 template <typename T>
 __device__ __forceinline__ T warp_sum(T x) {
@@ -187,79 +266,142 @@ __device__ __forceinline__ T warp_sum(T x) {
 }
 
 template <typename T>
-__global__ void rbf_bwd_rows_kernel(const T* __restrict__ Ainv,
-                                    const T* __restrict__ Kt,
-                                    const T* __restrict__ alpha,
-                                    const T* __restrict__ mask,
-                                    const T* __restrict__ X,
-                                    T* __restrict__ rw, T* __restrict__ wx,
-                                    T* __restrict__ dg, int64_t n, int d) {
+constexpr int kBwdMinBlocks = sizeof(T) == 4 ? 6 : 3;
+
+template <typename T, int V, int D>
+__global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks<T>)
+    rbf_bwd_kernel(const T* __restrict__ Ainv, const T* __restrict__ Kt,
+                   const T* __restrict__ alpha, const T* __restrict__ mask,
+                   const T* __restrict__ X, T* __restrict__ rw,
+                   T* __restrict__ wx, T* __restrict__ partials,
+                   unsigned int* __restrict__ counter, T* __restrict__ sums,
+                   int64_t n) {
+  constexpr int R = kBwdRowsPerWarp;
+  __shared__ T rw_s[kBwdRows];
+  __shared__ T dg_s[kBwdRows];
+  __shared__ T sum_s[2][kBwdWarps];
+  __shared__ bool last_s;
   const int lane = threadIdx.x & 31;
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n) return;  // row is uniform across the warp
-  const T a_row = alpha[row];
-  const T m_row = mask[row];
-  const T* __restrict__ ainv_row = Ainv + row * n;
-  const T* __restrict__ k_row = Kt + row * n;
-  T acc_rw = T(0);
-  T acc_wx[kMaxD];
+  const int warp = threadIdx.x >> 5;
+  const int64_t row0 =
+      static_cast<int64_t>(blockIdx.x) * kBwdRows + warp * R;
+
+  // The warp's rows; one past n (odd n) repeats row0 and is not written.
+  T a_row[R];
+  T m_row[R];
+  const T* __restrict__ ainv_row[R];
+  const T* __restrict__ k_row[R];
 #pragma unroll
-  for (int k = 0; k < kMaxD; ++k) acc_wx[k] = T(0);
-  for (int64_t j = lane; j < n; j += 32) {
-    const T w = (ainv_row[j] - a_row * alpha[j]) * (m_row * mask[j]) * k_row[j];
-    acc_rw += w;
+  for (int r = 0; r < R; ++r) {
+    const int64_t row = row0 + r < n ? row0 + r : row0;
+    a_row[r] = row0 < n ? alpha[row] : T(0);
+    m_row[r] = row0 < n ? mask[row] : T(0);
+    ainv_row[r] = Ainv + row * n;
+    k_row[r] = Kt + row * n;
+  }
+  T acc_rw[R];
+  T acc_wx[R][D];
 #pragma unroll
-    for (int k = 0; k < kMaxD; ++k) {
-      if (k < d) acc_wx[k] += w * X[j * d + k];
+  for (int r = 0; r < R; ++r) {
+    acc_rw[r] = T(0);
+#pragma unroll
+    for (int k = 0; k < D; ++k) acc_wx[r][k] = T(0);
+  }
+  if (row0 < n) {  // uniform across the warp
+    const int64_t steps = n / V;  // n % V == 0 when V > 1
+#pragma unroll 2
+    for (int64_t c = lane; c < steps; c += 32) {
+      const int64_t j0 = c * V;
+      T al[V];
+      T mk[V];
+      T xv[V * D];
+      T ai[R][V];
+      T kk[R][V];
+      load_vec<T, V>(alpha + j0, al);
+      load_vec<T, V>(mask + j0, mk);
+#pragma unroll
+      for (int q = 0; q < D; ++q) load_vec<T, V>(X + j0 * D + q * V, xv + q * V);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        load_vec<T, V>(ainv_row[r] + j0, ai[r]);
+        load_vec<T, V>(k_row[r] + j0, kk[r]);
+      }
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const T w =
+              (ai[r][e] - a_row[r] * al[e]) * (m_row[r] * mk[e]) * kk[r][e];
+          acc_rw[r] += w;
+#pragma unroll
+          for (int k = 0; k < D; ++k) acc_wx[r][k] += w * xv[e * D + k];
+        }
+      }
     }
   }
-  acc_rw = warp_sum(acc_rw);
 #pragma unroll
-  for (int k = 0; k < kMaxD; ++k) {
-    if (k < d) acc_wx[k] = warp_sum(acc_wx[k]);
+  for (int r = 0; r < R; ++r) {
+    acc_rw[r] = warp_sum(acc_rw[r]);
+#pragma unroll
+    for (int k = 0; k < D; ++k) acc_wx[r][k] = warp_sum(acc_wx[r][k]);
   }
   if (lane == 0) {
-    rw[row] = acc_rw;
 #pragma unroll
-    for (int k = 0; k < kMaxD; ++k) {
-      if (k < d) wx[row * d + k] = acc_wx[k];
+    for (int r = 0; r < R; ++r) {
+      const int64_t row = row0 + r;
+      T rwv = T(0);
+      T dgv = T(0);
+      if (row < n) {
+        rw[row] = acc_rw[r];
+#pragma unroll
+        for (int k = 0; k < D; ++k) wx[row * D + k] = acc_wx[r][k];
+        rwv = acc_rw[r];
+        dgv = Ainv[row * n + row] * m_row[r] * m_row[r];
+      }
+      rw_s[warp * R + r] = rwv;
+      dg_s[warp * R + r] = dgv;
     }
-    dg[row] = ainv_row[row] * m_row * m_row;
   }
-}
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    T prw = T(0);
+    T pdg = T(0);
+    for (int i = 0; i < kBwdRows; ++i) {
+      prw += rw_s[i];
+      pdg += dg_s[i];
+    }
+    partials[blockIdx.x] = prw;
+    partials[gridDim.x + blockIdx.x] = pdg;
+    __threadfence();  // the sums reach L2 before the counter moves
+    last_s = atomicAdd(counter, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last_s) return;
 
-template <typename T>
-__global__ void sum_pair_kernel(const T* __restrict__ a,
-                                const T* __restrict__ b, T* __restrict__ out,
-                                int64_t n) {
-  __shared__ T part_a[kSumThreads / 32];
-  __shared__ T part_b[kSumThreads / 32];
+  // Last block: every block's sums are in L2; add them in block order.
   T sa = T(0);
   T sb = T(0);
-  for (int64_t i = threadIdx.x; i < n; i += blockDim.x) {
-    sa += a[i];
-    sb += b[i];
+  for (unsigned i = threadIdx.x; i < gridDim.x; i += blockDim.x) {
+    sa += __ldcg(partials + i);
+    sb += __ldcg(partials + gridDim.x + i);
   }
   sa = warp_sum(sa);
   sb = warp_sum(sb);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   if (lane == 0) {
-    part_a[warp] = sa;
-    part_b[warp] = sb;
+    sum_s[0][warp] = sa;
+    sum_s[1][warp] = sb;
   }
   __syncthreads();
-  if (warp == 0) {
-    const int nwarps = blockDim.x >> 5;
-    sa = lane < nwarps ? part_a[lane] : T(0);
-    sb = lane < nwarps ? part_b[lane] : T(0);
-    sa = warp_sum(sa);
-    sb = warp_sum(sb);
-    if (lane == 0) {
-      out[0] = sa;
-      out[1] = sb;
+  if (threadIdx.x == 0) {
+    sa = T(0);
+    sb = T(0);
+    for (int w = 0; w < kBwdWarps; ++w) {
+      sa += sum_s[0][w];
+      sb += sum_s[1][w];
     }
+    sums[0] = sa;
+    sums[1] = sb;
+    *counter = 0u;  // ready for the next launch on this stream
   }
 }
 
@@ -282,46 +424,102 @@ int launch_sqdist(const T* A, const T* B, T* out, int64_t n, int64_t m, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_masked_system(const T* Xs, const T* mask, const T* scal, T* Kt,
-                         T* A, int64_t n, int d, int kernel, void* stream) {
-  if (n > 0) {
-    const dim3 grid = tile_grid(n, n);
-    const dim3 block(kTile, kBlockRows);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (kernel) {
-      case kRBF:
-        masked_system_kernel<T, kRBF><<<grid, block, 0, s>>>(Xs, mask, scal,
-                                                             Kt, A, n, d);
-        break;
-      case kMatern52:
-        masked_system_kernel<T, kMatern52><<<grid, block, 0, s>>>(
-            Xs, mask, scal, Kt, A, n, d);
-        break;
-      case kRationalQuadratic:
-        masked_system_kernel<T, kRationalQuadratic><<<grid, block, 0, s>>>(
-            Xs, mask, scal, Kt, A, n, d);
-        break;
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
+template <typename T, int V>
+int launch_masked_system_v(const T* Xs, const T* mask, const T* variance,
+                           const T* noise_jitter, const T* rq_alpha, T* Kt,
+                           T* A, int64_t n, int d, int kernel,
+                           cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>((n + 32 * V - 1) / (32 * V)),
+                  static_cast<unsigned>((n + kSysRows - 1) / kSysRows));
+  const dim3 block(kSysWarps * 32);
+  switch (kernel) {
+    case kRBF:
+      masked_system_kernel<T, kRBF, V><<<grid, block, 0, s>>>(
+          Xs, mask, variance, noise_jitter, rq_alpha, Kt, A, n, d);
+      break;
+    case kMatern52:
+      masked_system_kernel<T, kMatern52, V><<<grid, block, 0, s>>>(
+          Xs, mask, variance, noise_jitter, rq_alpha, Kt, A, n, d);
+      break;
+    case kRationalQuadratic:
+      masked_system_kernel<T, kRationalQuadratic, V><<<grid, block, 0, s>>>(
+          Xs, mask, variance, noise_jitter, rq_alpha, Kt, A, n, d);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
+int launch_masked_system(const T* Xs, const T* mask, const T* variance,
+                         const T* noise_jitter, const T* rq_alpha, T* Kt,
+                         T* A, int64_t n, int d, int kernel, void* stream) {
+  if (kernel == kRationalQuadratic && rq_alpha == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n % kVec<T> == 0 && aligned16(Kt) && aligned16(A)) {
+    return launch_masked_system_v<T, kVec<T>>(Xs, mask, variance,
+                                              noise_jitter, rq_alpha, Kt, A,
+                                              n, d, kernel, s);
+  }
+  return launch_masked_system_v<T, 1>(Xs, mask, variance, noise_jitter,
+                                      rq_alpha, Kt, A, n, d, kernel, s);
+}
+
+template <typename T, int V, int D>
+void launch_rbf_bwd_vd(const T* Ainv, const T* Kt, const T* alpha,
+                       const T* mask, const T* X, T* rw, T* wx, T* partials,
+                       unsigned int* counter, T* sums, int64_t n,
+                       cudaStream_t s) {
+  // at least one block, so n == 0 still writes zero sums
+  const int64_t blocks = n > 0 ? (n + kBwdRows - 1) / kBwdRows : 1;
+  rbf_bwd_kernel<T, V, D><<<static_cast<unsigned>(blocks), kBwdWarps * 32, 0,
+                            s>>>(Ainv, Kt, alpha, mask, X, rw, wx, partials,
+                                 counter, sums, n);
+}
+
+template <typename T, int V>
+int launch_rbf_bwd_v(const T* Ainv, const T* Kt, const T* alpha,
+                     const T* mask, const T* X, T* rw, T* wx, T* partials,
+                     unsigned int* counter, T* sums, int64_t n, int d,
+                     cudaStream_t s) {
+#define GPIM_BWD_CASE(D)                                                     \
+  case D:                                                                    \
+    launch_rbf_bwd_vd<T, V, D>(Ainv, Kt, alpha, mask, X, rw, wx, partials,   \
+                               counter, sums, n, s);                         \
+    break;
+  switch (d) {
+    GPIM_BWD_CASE(1)
+    GPIM_BWD_CASE(2)
+    GPIM_BWD_CASE(3)
+    GPIM_BWD_CASE(4)
+    GPIM_BWD_CASE(5)
+    GPIM_BWD_CASE(6)
+    GPIM_BWD_CASE(7)
+    GPIM_BWD_CASE(8)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef GPIM_BWD_CASE
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int launch_rbf_bwd(const T* Ainv, const T* Kt, const T* alpha, const T* mask,
-                   const T* X, T* rw, T* wx, T* dg, T* sums, int64_t n, int d,
+                   const T* X, T* rw, T* wx, T* partials,
+                   unsigned int* counter, T* sums, int64_t n, int d,
                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n > 0) {
-    const unsigned blocks =
-        static_cast<unsigned>((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
-    rbf_bwd_rows_kernel<T><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
-        Ainv, Kt, alpha, mask, X, rw, wx, dg, n, d);
+  if (n % kVec<T> == 0 && aligned16(Ainv) && aligned16(Kt) &&
+      aligned16(alpha) && aligned16(mask) && aligned16(X)) {
+    return launch_rbf_bwd_v<T, kVec<T>>(Ainv, Kt, alpha, mask, X, rw, wx,
+                                        partials, counter, sums, n, d, s);
   }
-  sum_pair_kernel<T><<<1, kSumThreads, 0, s>>>(rw, dg, sums, n);
-  return static_cast<int>(cudaGetLastError());
+  return launch_rbf_bwd_v<T, 1>(Ainv, Kt, alpha, mask, X, rw, wx, partials,
+                                counter, sums, n, d, s);
 }
 
 }  // namespace
@@ -342,36 +540,42 @@ int gpim_sqdist_f64(const double* A, const double* B, double* out, int64_t n,
   return launch_sqdist<double>(A, B, out, n, m, d, stream);
 }
 
+// rq_alpha may be null unless kernel is RationalQuadratic.
 int gpim_masked_system_f32(const float* Xs, const float* mask,
-                           const float* scal, float* Kt, float* A, int64_t n,
-                           int d, int kernel, void* stream) {
-  return launch_masked_system<float>(Xs, mask, scal, Kt, A, n, d, kernel,
-                                     stream);
+                           const float* variance, const float* noise_jitter,
+                           const float* rq_alpha, float* Kt, float* A,
+                           int64_t n, int d, int kernel, void* stream) {
+  return launch_masked_system<float>(Xs, mask, variance, noise_jitter,
+                                     rq_alpha, Kt, A, n, d, kernel, stream);
 }
 
 int gpim_masked_system_f64(const double* Xs, const double* mask,
-                           const double* scal, double* Kt, double* A,
+                           const double* variance, const double* noise_jitter,
+                           const double* rq_alpha, double* Kt, double* A,
                            int64_t n, int d, int kernel, void* stream) {
-  return launch_masked_system<double>(Xs, mask, scal, Kt, A, n, d, kernel,
-                                      stream);
+  return launch_masked_system<double>(Xs, mask, variance, noise_jitter,
+                                      rq_alpha, Kt, A, n, d, kernel, stream);
 }
 
+// partials holds 2 values per block (at least 2 max(n, 1) is enough);
+// counter is one zeroed unsigned int per stream, left at zero again.
 int gpim_rbf_bwd_reductions_f32(const float* Ainv, const float* Kt,
                                 const float* alpha, const float* mask,
                                 const float* X, float* rw, float* wx,
-                                float* dg, float* sums, int64_t n, int d,
-                                void* stream) {
-  return launch_rbf_bwd<float>(Ainv, Kt, alpha, mask, X, rw, wx, dg, sums, n,
-                               d, stream);
+                                float* partials, unsigned int* counter,
+                                float* sums, int64_t n, int d, void* stream) {
+  return launch_rbf_bwd<float>(Ainv, Kt, alpha, mask, X, rw, wx, partials,
+                               counter, sums, n, d, stream);
 }
 
 int gpim_rbf_bwd_reductions_f64(const double* Ainv, const double* Kt,
                                 const double* alpha, const double* mask,
                                 const double* X, double* rw, double* wx,
-                                double* dg, double* sums, int64_t n, int d,
+                                double* partials, unsigned int* counter,
+                                double* sums, int64_t n, int d,
                                 void* stream) {
-  return launch_rbf_bwd<double>(Ainv, Kt, alpha, mask, X, rw, wx, dg, sums, n,
-                                d, stream);
+  return launch_rbf_bwd<double>(Ainv, Kt, alpha, mask, X, rw, wx, partials,
+                                counter, sums, n, d, stream);
 }
 
 }  // extern "C"

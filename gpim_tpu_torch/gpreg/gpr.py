@@ -5,8 +5,10 @@ Exact GP reconstruction of NaN-masked grids on PyTorch (counterpart of
 Same constructor signature as the reference's
 ``gpim.gpreg.gpr.reconstructor``, ``train`` / ``predict`` / ``run``
 methods, numpy in and numpy out, and the same public ``hyperparams`` time
-series. ``use_gpu`` is honoured: True places the model on the CUDA device
-(and raises if there is none), False on the CPU.
+series. The model runs on the CUDA device unless the caller asks for the
+CPU with ``use_gpu=False``; without a CUDA device the default raises and
+never quietly runs on the CPU. (The reference ignores ``use_gpu`` and always
+runs on its accelerator.)
 
 Not ported yet, and raising ``NotImplementedError``: ``sparse=True`` (the
 VFE slice), ``mesh=`` (the parallel slice) and ``step()`` (which needs the
@@ -47,7 +49,8 @@ def _resolve_device(use_gpu):
     if not use_gpu:
         return torch.device("cpu")
     if not torch.cuda.is_available():
-        raise RuntimeError("use_gpu=True but no CUDA device is available")
+        raise RuntimeError("no CUDA device is available; pass use_gpu=False "
+                           "to run on the CPU")
     return torch.device("cuda")
 
 
@@ -57,9 +60,11 @@ class reconstructor:
     Args mirror the reference (gpr.py:74-168): X (c, N, M[, L]) grid indices
     with NaNs at missing points, y (N, M[, L]) observations with NaNs, Xtest
     full prediction grid, kernel in {'RBF', 'Matern52', 'RationalQuadratic'},
-    lengthscale bounds, learning_rate, iterations, use_gpu, verbose, seed,
-    and kwargs: amplitude (variance bounds), precision ('single'/'double';
-    default: double on the CPU, single on CUDA), jitter, isotropic.
+    lengthscale bounds, learning_rate, iterations, use_gpu (default True:
+    the CUDA device, RuntimeError without one; False: the CPU), verbose,
+    seed, and kwargs: amplitude (variance bounds), precision
+    ('single'/'double'; default: double on the CPU, single on CUDA),
+    jitter, isotropic.
     """
 
     def __init__(self,
@@ -72,7 +77,7 @@ class reconstructor:
                  indpoints=None,
                  learning_rate=5e-2,
                  iterations=1000,
-                 use_gpu=False,
+                 use_gpu=True,
                  verbose=1,
                  seed=0,
                  **kwargs):

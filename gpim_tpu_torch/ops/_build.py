@@ -37,9 +37,10 @@ _INT = ctypes.c_int
 # returns the cudaError_t of its launch.
 _SIGNATURES = {
     "gpim_sqdist": (_P, _P, _P, _I64, _I64, _INT, _P),
-    "gpim_masked_system": (_P, _P, _P, _P, _P, _I64, _INT, _INT, _P),
-    "gpim_rbf_bwd_reductions": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
-                                _INT, _P),
+    "gpim_masked_system": (_P, _P, _P, _P, _P, _P, _P, _I64, _INT, _INT,
+                           _P),
+    "gpim_rbf_bwd_reductions": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I64, _INT, _P),
 }
 
 

@@ -26,7 +26,7 @@ import torch
 from gpim_tpu_torch.ops import _build
 
 __all__ = [
-    "MAX_D", "KERNEL_IDS",
+    "MAX_D", "KERNEL_IDS", "min_traffic",
     "sqdist", "sqdist_plain",
     "masked_system", "masked_system_plain",
     "rbf_bwd_reductions", "rbf_bwd_reductions_plain",
@@ -35,8 +35,29 @@ __all__ = [
 MAX_D = 8                    # feature count the CUDA kernels take
 KERNEL_IDS = {"RBF": 0, "Matern52": 1, "RationalQuadratic": 2}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-_MAX_TILE_ROWS = 65535 * 32  # grid.y limit of the K1/K2 tile grid
+# grid.y limits: K1 tiles have 32 rows, K2 tiles 64 (csrc/gram_kernels.cu)
+_MAX_SQDIST_ROWS = 65535 * 32
+_MAX_SYSTEM_ROWS = 65535 * 64
 _SQRT5 = math.sqrt(5.0)
+
+
+def min_traffic(name, n, d, m=None, itemsize=4):
+    """(bytes read, bytes written, operations) of one call of kernel
+    ``name`` at these shapes: each input read once and each output written
+    once, whatever the kernel reads again; operations per element as the
+    RBF form of its arithmetic does them, an exp counted as one. ``m`` is
+    K1's column count."""
+    if name == "sqdist":
+        return (n * d + m * d) * itemsize, n * m * itemsize, 3 * d * n * m
+    if name == "masked_system":
+        # Xs, mask, 3 scalars -> Kt, A
+        return ((n * d + n + 3) * itemsize, 2 * n * n * itemsize,
+                (3 * d + 6) * n * n)
+    if name == "rbf_bwd_reductions":
+        # Ainv, Kt, alpha, mask, X -> S1, rw, WX, diagsum
+        return ((2 * n * n + 2 * n + n * d) * itemsize,
+                (2 + n + n * d) * itemsize, (2 * d + 6) * n * n)
+    raise ValueError(name)
 
 
 def _check_cuda(name, tensors, d=None):
@@ -111,9 +132,9 @@ def _sqdist_forward(A, B):
     if B.shape[1] != d:
         raise ValueError("sqdist: feature counts differ, %d and %d"
                          % (d, B.shape[1]))
-    if n > _MAX_TILE_ROWS:
+    if n > _MAX_SQDIST_ROWS:
         raise ValueError("sqdist: at most %d rows, got %d"
-                         % (_MAX_TILE_ROWS, n))
+                         % (_MAX_SQDIST_ROWS, n))
     out = torch.empty((n, m), dtype=dtype, device=A.device)
     _launch("gpim_sqdist", dtype, _ptr(A), _ptr(B), _ptr(out), n, m, d,
             _stream(A))
@@ -155,11 +176,16 @@ sqdist.launches = 0
 #
 # Replaces fused_masked_system_pallas (pallas_gram.py:168-210, pallas_call
 # at :186, body _system_kernel :134-165). Bound by the 2 n^2 values it
-# writes: at the flagship's n = 6144, 302 MB (f32) per Adam step. Same
-# tiling as K1; the kernel family is a template argument, and the scalars
-# (v, noise + jitter, alpha) are read from a 3-value device buffer built by
-# torch ops, so no Adam step copies a scalar to the host. Not
-# differentiable: the caller (engine._NLLFast) owns the gradient.
+# writes: at the flagship's n = 6144, 302 MB (f32) per Adam step. So the
+# kernel is built for its stores: a block owns 64 rows x 128 columns (f32;
+# 64 in f64), each thread writes one 16-byte vector of Kt and one of A per
+# row from column points held in registers, and the tile's row points are
+# staged once. Where n is not a multiple of the vector width the same
+# kernel runs with one element per thread. The kernel family is a template
+# argument; the scalars (v, noise + jitter, alpha) are passed as device
+# scalars, so no Adam step copies one to the host and the wrapper launches
+# nothing else. Not differentiable: the caller (engine._NLLFast) owns the
+# gradient.
 # ---------------------------------------------------------------------------
 
 def _kernel_plain(kernel, s, variance, alpha):
@@ -204,18 +230,21 @@ def masked_system(Xs, mask, variance, noise_plus_jitter, alpha=None, *,
     if mask.shape != (n,):
         raise ValueError("masked_system: mask must be (%d,), got %s"
                          % (n, tuple(mask.shape)))
-    if n > _MAX_TILE_ROWS:
+    if n > _MAX_SYSTEM_ROWS:
         raise ValueError("masked_system: at most %d rows, got %d"
-                         % (_MAX_TILE_ROWS, n))
-    if alpha is None:
-        alpha = torch.zeros((), dtype=dtype, device=Xs.device)
-    scal = torch.stack([
-        torch.as_tensor(x, dtype=dtype, device=Xs.device).reshape(())
-        for x in (variance, noise_plus_jitter, alpha)])
+                         % (_MAX_SYSTEM_ROWS, n))
+    if kernel == "RationalQuadratic" and alpha is None:
+        raise ValueError("masked_system: RationalQuadratic needs alpha")
+    # device scalars of the kernel's dtype; a 0-d CUDA tensor of that dtype
+    # passes through as it is
+    v, nj, a = (None if x is None else
+                torch.as_tensor(x, dtype=dtype, device=Xs.device).reshape(())
+                for x in (variance, noise_plus_jitter, alpha))
     Kt = torch.empty((n, n), dtype=dtype, device=Xs.device)
     A = torch.empty((n, n), dtype=dtype, device=Xs.device)
-    _launch("gpim_masked_system", dtype, _ptr(Xs), _ptr(mask), _ptr(scal),
-            _ptr(Kt), _ptr(A), n, d, KERNEL_IDS[kernel], _stream(Xs))
+    _launch("gpim_masked_system", dtype, _ptr(Xs), _ptr(mask), _ptr(v),
+            _ptr(nj), None if a is None else _ptr(a), _ptr(Kt), _ptr(A), n,
+            d, KERNEL_IDS[kernel], _stream(Xs))
     masked_system.launches += 1
     return Kt, A
 
@@ -229,11 +258,16 @@ masked_system.launches = 0
 # Replaces rbf_bwd_reductions_pallas (pallas_gram.py:270-321, pallas_call
 # at :283, body _bwd_red_kernel :228-267). Bound by the 2 n^2 values it
 # reads (Ainv and Kt): 302 MB per Adam step at n = 6144 in f32; W is never
-# written. The TPU kernel carried row sums across its sequential column
-# grid, which Hopper blocks cannot do; here one warp owns one row and a
-# second one-block pass sums the per-row results, so no atomics and the
-# same f32 result in every run. rw comes out as (n,), not the TPU's
-# (n, 128) lane broadcast.
+# written. So the kernel is built for its loads: each warp owns two whole
+# rows (the TPU kernel carried row sums across its sequential column grid,
+# which Hopper blocks cannot do) and reads them in 16-byte vectors, with the
+# column side (alpha, mask, X) loaded once for both rows. The scalar sums
+# come from the same launch: the last block to finish adds the blocks' sums
+# in block order. Every sum has a fixed order, so the f32 result is the
+# same in every run. Where n is not a multiple of the vector width, or an
+# operand does not start 16-byte aligned, the same kernel runs with one
+# element per thread. rw comes out as (n,), not the TPU's (n, 128) lane
+# broadcast.
 # ---------------------------------------------------------------------------
 
 def rbf_bwd_reductions_plain(Ainv, Kt, alpha, mask, X):
@@ -242,6 +276,18 @@ def rbf_bwd_reductions_plain(Ainv, Kt, alpha, mask, X):
          * (mask[:, None] * mask[None, :]) * Kt)
     return (W.sum(), W.sum(dim=1), W @ X,
             (torch.diagonal(Ainv) * mask * mask).sum())
+
+
+_COUNTERS = {}
+
+
+def _block_counter(device, stream):
+    """K3's zeroed finish counter for launches on ``stream``: launches on
+    one stream run in order, and each leaves the counter at zero again."""
+    key = (device, stream.value)
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _COUNTERS[key]
 
 
 def rbf_bwd_reductions(Ainv, Kt, alpha, mask, X):
@@ -263,11 +309,13 @@ def rbf_bwd_reductions(Ainv, Kt, alpha, mask, X):
     dev = X.device
     rw = torch.empty((n,), dtype=dtype, device=dev)
     wx = torch.empty((n, d), dtype=dtype, device=dev)
-    dg = torch.empty((n,), dtype=dtype, device=dev)
+    partials = torch.empty((2 * max(n, 1),), dtype=dtype, device=dev)
     sums = torch.empty((2,), dtype=dtype, device=dev)
+    stream = _stream(X)
     _launch("gpim_rbf_bwd_reductions", dtype, _ptr(Ainv), _ptr(Kt),
-            _ptr(alpha), _ptr(mask), _ptr(X), _ptr(rw), _ptr(wx), _ptr(dg),
-            _ptr(sums), n, d, _stream(X))
+            _ptr(alpha), _ptr(mask), _ptr(X), _ptr(rw), _ptr(wx),
+            _ptr(partials), _ptr(_block_counter(dev, stream)), _ptr(sums), n,
+            d, stream)
     rbf_bwd_reductions.launches += 1
     return sums[0], rw, wx, sums[1]
 

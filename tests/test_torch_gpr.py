@@ -43,7 +43,7 @@ def test_run_matches_gpim_tpu(kernel, precision):
     R = get_dummy_data()
     X, X_full = utils.get_sparse_grid(R), utils.get_full_grid(R)
     kw = dict(kernel=kernel, iterations=10, learning_rate=0.1, verbose=0,
-              precision=precision)
+              precision=precision, use_gpu=False)
     mean, sd, hp = gpim_tpu_torch.reconstructor(X, R, X_full, **kw).run()
     mean_j, sd_j, hp_j = gpim_tpu.reconstructor(X, R, X_full, **kw).run()
     assert mean.shape == sd.shape == R.shape
@@ -64,7 +64,7 @@ def test_nan_rows_restored():
     JAX package's values elsewhere (EI/POI rely on it)."""
     R = get_dummy_data()
     X, X_full = utils.get_sparse_grid(R), utils.get_full_grid(R)
-    kw = dict(iterations=5, verbose=0, precision="double")
+    kw = dict(iterations=5, verbose=0, precision="double", use_gpu=False)
     model = gpim_tpu_torch.reconstructor(X, R, X_full, **kw)
     model_j = gpim_tpu.reconstructor(X, R, X_full, **kw)
     model.train()
@@ -83,7 +83,7 @@ def test_gpim_tpu_checkpoint_predicts_equally(tmp_path):
     R = get_dummy_data(seed=1)
     X, X_full = utils.get_sparse_grid(R), utils.get_full_grid(R)
     kw = dict(kernel="RationalQuadratic", iterations=8, verbose=0,
-              precision="double")
+              precision="double", use_gpu=False)
     model_j = gpim_tpu.reconstructor(X, R, X_full, **kw)
     model_j.train()
     path = tmp_path / "ckpt.npz"
@@ -103,8 +103,8 @@ def test_gpim_tpu_checkpoint_predicts_equally(tmp_path):
     other.load_model(str(tmp_path / "port"))
     assert_allclose(other.predict()[0], mean, rtol=1e-12)
     with pytest.raises(ValueError):
-        gpim_tpu_torch.reconstructor(X, R, X_full, kernel="RBF",
-                                     verbose=0).load_model(str(path))
+        gpim_tpu_torch.reconstructor(X, R, X_full, kernel="RBF", verbose=0,
+                                     use_gpu=False).load_model(str(path))
 
 
 def test_exact_gp_matches_closed_form():
@@ -117,7 +117,7 @@ def test_exact_gp_matches_closed_form():
     model = gpim_tpu_torch.reconstructor(
         X.T.reshape(2, 40), y.copy(), None, kernel='RBF',
         lengthscale=[[0.1, 0.1], [5.0, 5.0]], iterations=5,
-        learning_rate=0.05, verbose=0, precision="double")
+        learning_rate=0.05, verbose=0, precision="double", use_gpu=False)
     model.train()
     mean, sd = model.predict(Xt.T.reshape(2, 17))
     ls = model.hyperparams["lengthscale"][-1]
@@ -142,7 +142,7 @@ def test_update_data_and_retrain():
     R = get_dummy_data()
     X, X_full = utils.get_sparse_grid(R), utils.get_full_grid(R)
     model = gpim_tpu_torch.reconstructor(X, R, X_full, iterations=2,
-                                         verbose=0)
+                                         verbose=0, use_gpu=False)
     model.train()
     R2 = R.copy()
     for i, j in np.argwhere(np.isnan(R2))[:5]:
@@ -171,7 +171,8 @@ def test_single_vs_double_precision_tolerance():
     for prec in ("single", "double"):
         out[prec] = gpim_tpu_torch.reconstructor(
             X, R.copy(), Xf, kernel="RBF", iterations=60,
-            learning_rate=0.05, verbose=0, precision=prec).run()
+            learning_rate=0.05, verbose=0, precision=prec,
+            use_gpu=False).run()
     m32, s32, h32 = out["single"]
     m64, s64, h64 = out["double"]
     assert_allclose(m32, m64, rtol=0, atol=5e-3)
@@ -184,7 +185,8 @@ def test_single_vs_double_precision_tolerance():
 def test_predict_without_test_grid_warns_and_uses_training_points():
     R = get_dummy_data()
     model = gpim_tpu_torch.reconstructor(utils.get_sparse_grid(R), R, None,
-                                         iterations=2, verbose=0)
+                                         iterations=2, verbose=0,
+                                         use_gpu=False)
     model.train()
     with pytest.warns(UserWarning, match="training data"):
         mean, sd = model.predict()
@@ -194,7 +196,7 @@ def test_predict_without_test_grid_warns_and_uses_training_points():
 def test_default_placement_and_dtype_on_cpu():
     R = get_dummy_data()
     model = gpim_tpu_torch.reconstructor(utils.get_sparse_grid(R), R,
-                                         verbose=0)
+                                         verbose=0, use_gpu=False)
     assert model.device.type == "cpu"
     assert model.dtype == torch.float64 and model.jitter == 1e-5
     tensors = (list(model.u.values()) + list(model._bounds().values())
@@ -213,13 +215,23 @@ def test_unported_or_unavailable_options_raise(bad, monkeypatch):
     exc = RuntimeError if "use_gpu" in bad else NotImplementedError
     with pytest.raises(exc):
         gpim_tpu_torch.reconstructor(utils.get_sparse_grid(R), R,
-                                     verbose=0, **bad)
+                                     verbose=0, **{"use_gpu": False, **bad})
+
+
+def test_default_device_is_the_card_and_raises_without_one(monkeypatch):
+    """Built without use_gpu, the model asks for the CUDA device: with none
+    it raises instead of quietly running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    R = get_dummy_data()
+    with pytest.raises(RuntimeError, match="use_gpu=False"):
+        gpim_tpu_torch.reconstructor(utils.get_sparse_grid(R), R, verbose=0)
 
 
 def test_step_raises_until_gpbayes_is_ported():
     R = get_dummy_data()
     model = gpim_tpu_torch.reconstructor(utils.get_sparse_grid(R), R,
-                                         utils.get_full_grid(R), verbose=0)
+                                         utils.get_full_grid(R), verbose=0,
+                                         use_gpu=False)
     with pytest.raises(NotImplementedError, match="gpbayes"):
         model.step()
 
