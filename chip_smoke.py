@@ -13,22 +13,35 @@ its final line):
 2. build   - compile csrc/gram_kernels.cu with nvcc; print the seconds.
 3. kernels - K1/K2/K3 against their plain versions (evaluated in float64
              on the same inputs), in float32 and float64, at the flagship's
-             shapes, with the tolerances below; float32 device time per call
-             of each kernel, its plain version and (K1) torch.cdist, from a
-             warm loop of launches (see _time_ms), beside the kernel's bound.
+             shapes, and K1 also at the three shapes of the VFE path (Kmn,
+             Kmm, one predict chunk's Ks), with the tolerances below;
+             float32 device time per call of each kernel, its plain version
+             and (K1) torch.cdist, beside the kernel's bound: K2 and K3 from
+             a warm loop of launches (_time_ms), K1 from a CUDA graph of
+             calls (_time_graph_ms).
 4. flagship - reconstructor(X, R, X_full, kernel="RBF", iterations=250,
              precision="single").run() on the 128x128 spiral
              (examples/_data.spiral_scan, n = 6144 padded training rows,
              16384 test points), cold then warm, built without use_gpu;
              rmse at the observed pixels < 0.1, no NaN, every kernel
              launched, every model tensor on the card.
-5. cross-check - the flagship in float64 (at the float32 jitter) on the
-             card against the float32 run; and a small problem on the card
-             against the CPU path.
-6. profile - torch.profiler over PROFILE_STEPS warm float32 training steps
-             of the flagship: device ms per step by kernel and the device's
-             idle share (printed; a profiler that records no device time
-             prints "not measured" and fails nothing).
+5. vfe     - the BEPFM 3D sparse workflow (examples/hyperspectral_3d_sparse
+             .py, benchmarks/suite.py bench_bepfm_3d_sparse):
+             reconstructor(X, R, X_full, kernel="Matern52", sparse=True,
+             indpoints=1000, learning_rate=0.05, iterations=400,
+             precision="single").run() on the 32x32x102 cube with 70.6% of
+             its spectra removed (n = 30848 padded rows, d = 3, m = 1027
+             inducing points, 104448 test points), cold then warm, built
+             without use_gpu; rmse against the full cube < 0.1, no NaN, K1
+             launched, every model tensor on the card.
+6. cross-check - the flagship and the VFE run in float64 (at the float32
+             jitter) on the card against their float32 runs; and small exact
+             and sparse problems on the card against the CPU path.
+7. profile - torch.profiler over PROFILE_STEPS warm float32 training steps
+             of the flagship and of the VFE run: device ms per step by
+             kernel and the device's idle share (printed; a profiler that
+             records no device time prints "not measured" and fails
+             nothing).
 
 Prints the kernels as one JSON line, then as its last line
 {"ok": true, "device": {...}}.
@@ -48,6 +61,8 @@ sys.path.insert(0, _HERE)
 sys.path.insert(0, os.path.join(_HERE, "examples"))
 
 ITERATIONS = 250
+VFE = dict(kernel="Matern52", sparse=True, indpoints=1000,
+           learning_rate=0.05, iterations=400)
 TIMING_REPS = 50
 # NVIDIA H100 SXM data sheet: HBM3 rate, and peaks outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -69,7 +84,21 @@ TOL = {
 # prediction agrees to < 1e-3. Its limit is 5e-2.
 CROSS_TOL = {"mean_atol": 2e-3, "sd_atol": 2e-3, "ls_rtol": 5e-2,
              "noise_atol": 1e-6}
-SMALL_RTOL = 1e-7          # small problem, CUDA vs CPU, float64
+# f32 VFE run vs f64 VFE run at the same jitter. The VFE trains 1027 x 3
+# inducing-point coordinates with the hyperparameters, and 400 Adam steps
+# amplify f32 rounding: on an H100 the two runs ended with inducing points
+# up to 16 grid units apart, mean 5.8e-2, sd 2.3e-2, lengthscale 5.5% and
+# noise 18% apart, while both reached rmse_vs_truth ~0.02 (0.0224 vs
+# 0.0195). So the end points are held to about twice those gaps, and
+# precision itself by what stays on one path: the loss at step 0 (same
+# parameters; 1.4e-7 apart) and a prediction in f64 from the f32 run's
+# final parameters against the f32 prediction ("same_u_*"; mean 1.8e-3
+# and sd 1.1e-5 apart, the mean through the f32 Cholesky of Kmm at jitter
+# 1e-4), each held to a few times its measured gap.
+VFE_CROSS_TOL = {"mean_atol": 1.2e-1, "sd_atol": 5e-2, "ls_rtol": 1.2e-1,
+                 "noise_rtol": 4e-1, "rmse_diff": 1e-2, "loss0_rtol": 1e-6,
+                 "same_u_mean_atol": 5e-3, "same_u_sd_atol": 1e-4}
+SMALL_RTOL = 1e-7          # small problems, CUDA vs CPU, float64
 PROFILE_STEPS = 10
 
 
@@ -86,6 +115,14 @@ def flagship_data():
     from gpim_tpu_torch import utils
     R = _data.spiral_scan()
     return R, utils.get_sparse_grid(R), utils.get_full_grid(R)
+
+
+def vfe_data():
+    import _data
+    from gpim_tpu_torch import utils
+    R = _data.bepfm_cube(sparse=True)
+    return R, utils.get_sparse_grid(R), utils.get_full_grid(R), \
+        _data.bepfm_cube()
 
 
 def small_data(seed=0):
@@ -144,9 +181,9 @@ def _time_ms(fn, reps=TIMING_REPS):
     """Device ms per call: CUDA events around a warm loop of ``reps``
     calls, one synchronise at its end, the window divided by ``reps``. The
     wrappers' host work (checks, allocation, the ctypes call) then overlaps
-    the device's, as it does in the training loop. Every timed call moves
-    >= 100 MB, twice the card's 50 MB L2, so each call finds cold what the
-    one before it touched, as the training loop does."""
+    the device's, as it does in the training loop. The flagship's calls
+    move >= 100 MB, twice the card's 50 MB L2, so each call finds cold what
+    the one before it touched, as the training loop does."""
     import torch
     for _ in range(3):
         fn()
@@ -158,6 +195,33 @@ def _time_ms(fn, reps=TIMING_REPS):
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _time_graph_ms(fn, reps=TIMING_REPS):
+    """Device ms per call with no host time in the window: ``reps`` calls
+    captured into one CUDA graph, one replay timed by CUDA events, divided
+    by ``reps``. K1's VFE shapes take a few microseconds on the card, less
+    than the wrapper's host work, so a loop of calls (:func:`_time_ms`)
+    times the host there; every K1 time is taken this way. Its Kmm (4 MB)
+    and Ks (17 MB) outputs fit in the 50 MB L2, as they do in training."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -190,8 +254,59 @@ def _check(name, dtype_name, err, nerr):
                              % (name, dtype_name, nerr, tol))
 
 
-def phase_kernels(R, X, X_full):
-    """Each kernel against its plain version at the flagship's shapes."""
+def _sqdist_case(A, B, zeros, dname, timed):
+    """K1 on (A, B) against its plain version; ``zeros`` (rows, cols) are
+    coincident pairs that must come out exactly 0. Returns the record."""
+    import torch
+    from gpim_tpu_torch.ops import gram_kernels as gk
+    out = gk.sqdist(A, B)
+    ref = gk.sqdist_plain(A.double(), B.double())
+    torch.cuda.synchronize()
+    if not bool((out[zeros] == 0).all()):
+        raise AssertionError("sqdist: coincident points are not exactly 0")
+    err, nerr = _norm_err(out, ref, ref.abs().max())
+    _check("sqdist", dname, err, nerr)
+    rec = {"err": err, "shape": [len(A), len(B), A.shape[1]]}
+    if timed:
+        rec["ms"] = _time_graph_ms(lambda: gk.sqdist(A, B))
+        # the same kernel timed as K2 and K3 are, host time overlapped
+        rec["loop_ms"] = _time_ms(lambda: gk.sqdist(A, B))
+        rec["plain_ms"] = _time_graph_ms(lambda: gk.sqdist_plain(A, B))
+        # the nearest single call; it returns the root of K1's output
+        rec["library_ms"] = _time_graph_ms(lambda: torch.cdist(A, B))
+        rec["bound"] = bound("sqdist", len(A), A.shape[1], m=len(B),
+                             dtype_name=dname)
+    return rec
+
+
+def _vfe_k1_inputs(vfe, dtype):
+    """K1's three operand pairs on the VFE path, from the BEPFM cube at a
+    trained model's lengthscales: Kmn (Xu, X), Kmm (Xu, Xu) and one predict
+    chunk's Ks (test points, Xu), with their coincident pairs."""
+    import torch
+    from gpim_tpu_torch import utils
+    from gpim_tpu_torch.gpreg import engine
+    R, X, X_full, _ = vfe
+    X_np, _ = utils.prepare_training_data(X, R)
+    stride = len(X_np) // VFE["indpoints"]
+    Xp, _ = engine.pad_rows(X_np, 128)
+    ls = np.array([4.0, 4.0, 9.0])
+    t = lambda a: torch.as_tensor(a / ls, dtype=dtype,  # noqa: E731
+                                  device="cuda").contiguous()
+    Xu, Xs = t(X_np[::stride]), t(Xp)
+    Xt = t(utils.prepare_test_data(X_full)[:4096])
+    Xt[:512] = Xu[:512]
+    m = len(Xu)
+    i = torch.arange(m, device="cuda")
+    j = torch.arange(512, device="cuda")
+    return [("Kmn", Xu, Xs, (i, i * stride)),
+            ("Kmm", Xu, Xu, (i, i)),
+            ("Ks", Xt, Xu, (j, j))]
+
+
+def phase_kernels(R, X, X_full, vfe):
+    """Each kernel against its plain version at the flagship's shapes, and
+    K1 also at the VFE path's."""
     import torch
     from gpim_tpu_torch import utils
     from gpim_tpu_torch.gpreg import engine
@@ -222,23 +337,17 @@ def phase_kernels(R, X, X_full):
         # K1 at the predict cross-Gram shape, a coincident block included
         A1 = t(Xt_np / ls).contiguous()
         A1[:512] = Xs[:512]
-        out = gk.sqdist(A1, Xs)
-        ref = gk.sqdist_plain(A1.double(), Xs.double())
-        torch.cuda.synchronize()
-        if not bool((torch.diagonal(out[:512, :512]) == 0).all()):
-            raise AssertionError("sqdist: coincident points are not exactly 0")
-        err, nerr = _norm_err(out, ref, ref.abs().max())
-        _check("sqdist", dname, err, nerr)
-        rec = {"sqdist": {"err": err}}
-        if dtype == torch.float32:
-            rec["sqdist"]["ms"] = _time_ms(lambda: gk.sqdist(A1, Xs))
-            rec["sqdist"]["plain_ms"] = _time_ms(
-                lambda: gk.sqdist_plain(A1, Xs))
-            # the nearest single call; it returns the root of K1's output
-            rec["sqdist"]["library_ms"] = _time_ms(
-                lambda: torch.cdist(A1, Xs))
-            rec["sqdist"]["bound"] = bound("sqdist", len(A1), Xs.shape[1],
-                                           m=n)
+        j = torch.arange(512, device=dev)
+        timed = dtype == torch.float32
+        rec = {"sqdist": _sqdist_case(A1, Xs, (j, j), dname, timed)}
+        # K1 at the VFE path's three shapes
+        rec["sqdist"]["vfe_shapes"] = {}
+        for label, A, B, zeros in _vfe_k1_inputs(vfe, dtype):
+            log("[kernels]   sqdist VFE %s %d x %d, d = %d"
+                % (label, len(A), len(B), A.shape[1]))
+            rec["sqdist"]["vfe_shapes"][label] = _sqdist_case(
+                A, B, zeros, dname, timed)
+        del A1, A, B
 
         # K2 at the training system shape, all three kernel families
         vt, njt, at = t(v), t(noise + jitter), t(rq_alpha)
@@ -305,11 +414,19 @@ def phase_kernels(R, X, X_full):
         report[dname] = rec
         del Kt, A, L, V, Ainv, absW
         torch.cuda.empty_cache()
+    def show(name, r):
+        log("[kernels] %-19s float32 kernel %.4f ms%s, plain %.4f ms, "
+            "library %s ms, bound %.4f ms (%s), %.0f%% of bound (%s of %d)"
+            % (name, r["ms"], "" if "loop_ms" not in r else
+               " (%.4f in a loop of calls)" % r["loop_ms"], r["plain_ms"],
+               "none" if r["library_ms"] is None else
+               "%.4f" % r["library_ms"], r["bound"][0], r["bound"][1],
+               100 * r["bound"][0] / r["ms"],
+               "graph" if "loop_ms" in r else "warm loop", TIMING_REPS))
     for name, r in report["float32"].items():
-        log("[kernels] %-19s float32 kernel %.4f ms, plain %.4f ms, bound "
-            "%.4f ms (%s), %.0f%% of bound (warm loop of %d)"
-            % (name, r["ms"], r["plain_ms"], r["bound"][0], r["bound"][1],
-               100 * r["bound"][0] / r["ms"], TIMING_REPS))
+        show(name, r)
+    for label, r in report["float32"]["sqdist"]["vfe_shapes"].items():
+        show("sqdist VFE " + label, r)
     return report["float32"]
 
 
@@ -377,7 +494,65 @@ def phase_flagship(R, X, X_full):
     return launches, (mean, sd, hp)
 
 
-def phase_cross_check(R, X, X_full, f32):
+def _run_vfe(vfe, precision, label, **kwargs):
+    import torch
+    from gpim_tpu_torch import reconstructor
+    R, X, X_full, truth = vfe
+    # no use_gpu: the card is the default device
+    model = reconstructor(X, R, X_full, precision=precision, verbose=0,
+                          **VFE, **kwargs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean, sd, hp = model.run()
+    total = time.perf_counter() - t0
+    ph = model.timer.phases
+    # benchmarks/suite.py:237-239
+    tnorm = (truth - truth.min()) / np.ptp(truth)
+    mnorm = (mean - truth.min()) / np.ptp(truth)
+    rmse = float(np.sqrt(np.mean((mnorm - tnorm) ** 2)))
+    log("[vfe] %-11s train %.3f s, predict %.3f s, total %.3f s, "
+        "rmse_vs_truth %.5f, n = %d, m = %d, lengthscale %s, noise %.6g, "
+        "loss %.6g" % (
+            label, ph["train"]["first_s"], ph["predict"]["first_s"], total,
+            rmse, model._Xd.shape[0], model.u["Xu"].shape[0],
+            np.array2string(hp["lengthscale"][-1], precision=4),
+            hp["noise"][-1], model.losses[-1]))
+    return model, mean, sd, hp, rmse
+
+
+def phase_vfe(vfe):
+    import torch
+    R = vfe[0]
+    _reset_launches()
+    _run_vfe(vfe, "single", "f32 cold")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    model, mean, sd, hp, rmse = _run_vfe(vfe, "single", "f32 warm")
+    launches = _read_launches()
+    n_chunks = -(-int(np.prod(R.shape)) // 4096)
+    expected = 2 * VFE["iterations"] + 2 + n_chunks
+    log("[vfe] kernel launches in the warm run: %s (K1 expected %d: Kmm and "
+        "Kmn per step, both once more and %d chunks in predict)"
+        % (launches, expected, n_chunks))
+    log("[vfe] peak device memory %.1f MiB (warm run)" % (
+        torch.cuda.max_memory_allocated() / 2 ** 20))
+    if np.isnan(mean).any() or np.isnan(sd).any():
+        raise AssertionError("VFE prediction has NaNs")
+    if mean.shape != R.shape or sd.shape != R.shape:
+        raise AssertionError("VFE prediction has the wrong shape")
+    if not rmse < 0.1:
+        raise AssertionError("VFE rmse_vs_truth %.4f >= 0.1" % rmse)
+    if launches["sqdist"] == 0:
+        raise AssertionError("K1 was never launched on the VFE path")
+    tensors = (list(model.u.values()) + list(model._bounds().values())
+               + [model._Xd, model._yd, model._maskd])
+    if not all(t.is_cuda for t in tensors):
+        raise AssertionError("a VFE model built without use_gpu has a "
+                             "tensor that is not on the card")
+    return launches, (mean, sd, hp, rmse, model.u, model.losses)
+
+
+def phase_cross_check(R, X, X_full, f32, vfe, vfe32):
     import torch
     from gpim_tpu_torch import dtypes, reconstructor, utils
     # same objective in both precisions: the default jitter differs by
@@ -420,19 +595,69 @@ def phase_cross_check(R, X, X_full, f32):
             "max value %.3e (limit %.0e)" % (kernel, worst, SMALL_RTOL))
         if not worst <= SMALL_RTOL:
             raise AssertionError("CUDA and CPU paths disagree on %s" % kernel)
-    return diffs
+
+    # the VFE run in float64 at the float32 jitter
+    model64, m64, s64, h64, r64 = _run_vfe(
+        vfe, "double", "f64", jitter=dtypes.default_jitter(torch.float32))
+    m32, s32, h32, r32, u32, losses32 = vfe32
+    model64.u = {k: v.double() for k, v in u32.items()}
+    m64u, s64u = model64.predict()
+    vdiffs = {
+        "mean_atol": float(np.abs(m32 - m64).max()),
+        "sd_atol": float(np.abs(s32 - s64).max()),
+        "ls_rtol": float(np.max(np.abs(h32["lengthscale"][-1]
+                                       - h64["lengthscale"][-1])
+                                / np.abs(h64["lengthscale"][-1]))),
+        "noise_rtol": float(abs(h32["noise"][-1] - h64["noise"][-1])
+                            / abs(h64["noise"][-1])),
+        "rmse_diff": abs(r32 - r64),
+        "loss0_rtol": float(abs(losses32[0] - model64.losses[0])
+                            / abs(model64.losses[0])),
+        "same_u_mean_atol": float(np.abs(m32 - m64u).max()),
+        "same_u_sd_atol": float(np.abs(s32 - s64u).max()),
+    }
+    log("[cross-check] f32 vs f64 VFE: %s (limits %s); inducing points "
+        "%.3e apart at most" % (
+            json.dumps(vdiffs), json.dumps(VFE_CROSS_TOL),
+            float(np.abs(h32["inducing_points"][-1]
+                         - h64["inducing_points"][-1]).max())))
+    for k, lim in VFE_CROSS_TOL.items():
+        if not vdiffs[k] <= lim:
+            raise AssertionError("f32 vs f64 VFE %s %.3e > %.0e"
+                                 % (k, vdiffs[k], lim))
+
+    # small sparse problem in float64: CUDA vs the CPU path
+    out = {}
+    for use_gpu in (True, False):
+        for kernel in ("RBF", "Matern52", "RationalQuadratic"):
+            mean, sd, hp = reconstructor(
+                Xs, Rs, Xfs, kernel=kernel, sparse=True, indpoints=40,
+                iterations=30, learning_rate=0.1, precision="double",
+                use_gpu=use_gpu, verbose=0).run()
+            out[use_gpu, kernel] = (mean, sd, hp["lengthscale"],
+                                    hp["inducing_points"])
+    for kernel in ("RBF", "Matern52", "RationalQuadratic"):
+        worst = max(float(np.max(np.abs(g - c)) / np.max(np.abs(c)))
+                    for g, c in zip(out[True, kernel], out[False, kernel]))
+        log("[cross-check] small 24x24 sparse %s, CUDA vs CPU (f64): max "
+            "diff / max value %.3e (limit %.0e)" % (kernel, worst,
+                                                   SMALL_RTOL))
+        if not worst <= SMALL_RTOL:
+            raise AssertionError("CUDA and CPU sparse paths disagree on %s"
+                                 % kernel)
+    return diffs, vdiffs
 
 
-def phase_profile(R, X, X_full):
+def phase_profile(label, R, X, X_full, **kwargs):
     """Device time per warm training step, by kernel name, and the share of
     the host's train() window in which the device ran no kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from gpim_tpu_torch import reconstructor
-    model = reconstructor(X, R, X_full, kernel="RBF",
-                          iterations=PROFILE_STEPS, precision="single",
-                          verbose=0)
+    model = reconstructor(X, R, X_full, precision="single", verbose=0,
+                          **kwargs)
+    model.iterations = PROFILE_STEPS
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -449,9 +674,10 @@ def phase_profile(R, X, X_full):
     if busy_ms == 0.0:
         log("[profile] the profiler recorded no device time: not measured")
         return
-    log("[profile] %d warm f32 training steps: %.3f ms a step on the host "
-        "clock, %.3f ms of device time, device idle %.1f%%"
-        % (PROFILE_STEPS, wall_ms / PROFILE_STEPS, busy_ms / PROFILE_STEPS,
+    log("[profile] %s: %d warm f32 training steps: %.3f ms a step on the "
+        "host clock, %.3f ms of device time, device idle %.1f%%"
+        % (label, PROFILE_STEPS, wall_ms / PROFILE_STEPS,
+           busy_ms / PROFILE_STEPS,
            100.0 * max(0.0, 1.0 - busy_ms / wall_ms)))
     ranked = sorted(per_name.items(), key=lambda kv: -kv[1])
     ours = ("sqdist_kernel", "masked_system_kernel", "rbf_bwd_kernel")
@@ -461,7 +687,9 @@ def phase_profile(R, X, X_full):
                 ms / PROFILE_STEPS, 100.0 * ms / busy_ms, name[:100]))
 
 
-def kernel_records(kreport, launches):
+def kernel_records(kreport, paths):
+    """The kernels line; ``paths`` maps each main path to its warm run's
+    launch counts, and ``launches`` is their sum."""
     replaces = {"sqdist": "gpim_tpu/ops/pallas_gram.py:77",
                 "masked_system": "gpim_tpu/ops/pallas_gram.py:186",
                 "rbf_bwd_reductions": "gpim_tpu/ops/pallas_gram.py:283"}
@@ -472,7 +700,8 @@ def kernel_records(kreport, launches):
         out.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": replaces[name],
-            "launches": launches[name],
+            "launches": sum(p[name] for p in paths.values()),
+            "launches_per_path": {k: p[name] for k, p in paths.items()},
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_share": bound_ms / r["ms"],
@@ -481,6 +710,14 @@ def kernel_records(kreport, launches):
                         "of this kernel's output" if name == "sqdist"
                         else None),
         })
+        if name == "sqdist":
+            out[-1]["vfe_shapes"] = {
+                label: {"shape": v["shape"], "max_abs_err": v["err"],
+                        "ms": v["ms"], "plain_ms": v["plain_ms"],
+                        "bound_ms": v["bound"][0], "bound_by": v["bound"][1],
+                        "bound_share": v["bound"][0] / v["ms"],
+                        "library_ms": v["library_ms"]}
+                for label, v in r["vfe_shapes"].items()}
     return out
 
 
@@ -489,12 +726,15 @@ def main():
     phase_device()
     phase_build()
     R, X, X_full = flagship_data()
-    kreport = phase_kernels(R, X, X_full)
+    vfe = vfe_data()
+    kreport = phase_kernels(R, X, X_full, vfe)
     launches, f32 = phase_flagship(R, X, X_full)
-    phase_cross_check(R, X, X_full, f32)
-    phase_profile(R, X, X_full)
-    print(json.dumps({"kernels": kernel_records(kreport, launches)}),
-          flush=True)
+    vfe_launches, vfe32 = phase_vfe(vfe)
+    phase_cross_check(R, X, X_full, f32, vfe, vfe32)
+    phase_profile("flagship", R, X, X_full, kernel="RBF")
+    phase_profile("vfe", *vfe[:3], **VFE)
+    print(json.dumps({"kernels": kernel_records(
+        kreport, {"flagship": launches, "vfe": vfe_launches})}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

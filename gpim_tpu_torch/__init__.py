@@ -3,11 +3,12 @@ gpim_tpu_torch
 ==============
 
 PyTorch/CUDA port of ``gpim_tpu`` for one NVIDIA H100 (Hopper). The JAX
-package is the reference; this package carries its exact-GP reconstruction
-path end to end:
+package is the reference; this package carries its exact and sparse (VFE)
+reconstruction paths end to end:
 
 - ``utils``         : NaN-masked grid preparation (numpy)
-- ``reconstructor`` : exact GP regression of 2D images / 3D grids
+- ``reconstructor`` : exact and inducing-point (VFE, ``sparse=True``) GP
+                      regression of 2D images / 3D grids
 
 Plain tensor code is PyTorch; the three kernels that ``gpim_tpu`` wrote in
 Pallas are hand-written CUDA for Hopper (``gpim_tpu_torch/csrc``), each

@@ -21,7 +21,9 @@ def _to_tensors(arrays, device, dtype):
 
 def params_from_numpy(u, device, dtype):
     """Unconstrained parameters {'lengthscale', 'variance', 'noise'[,
-    'alpha']} as tensors of ``dtype`` on ``device``."""
+    'alpha'][, 'Xu']} as tensors of ``dtype`` on ``device``. 'Xu' holds a
+    sparse (VFE) model's (m, d) inducing points, so a ``gpim_tpu`` sparse
+    model is predicted by the port as it stands."""
     return _to_tensors(u, device, dtype)
 
 

@@ -1,5 +1,6 @@
-// Hand-written CUDA kernels of the exact-GP training and prediction path,
-// for Hopper (sm_90a). Counterpart: gpim_tpu/ops/pallas_gram.py.
+// Hand-written CUDA kernels of the exact-GP and sparse (VFE) training and
+// prediction paths, for Hopper (sm_90a). Counterpart:
+// gpim_tpu/ops/pallas_gram.py.
 //
 // K1 sqdist          (n, d) x (m, d) -> (n, m) squared distances
 // K2 masked_system   Kt and the masked training system A, in one pass
@@ -20,9 +21,8 @@
 namespace {
 
 constexpr int kMaxD = 8;         // largest feature count the kernels take
-constexpr int kTile = 32;        // K1 output tile: kTile rows x kTile cols
-constexpr int kBlockRows = 8;    // K1 block: (kTile, kBlockRows) threads
-constexpr int kRowsPerThread = kTile / kBlockRows;
+constexpr int kDistWarps = 8;    // K1 block: 8 warps ...
+constexpr int kDistRows = 32;    // ... over a tile of 32 rows x 32 V columns
 constexpr int kSysWarps = 8;     // K2 block: 8 warps ...
 constexpr int kSysRows = 64;     // ... over a tile of 64 rows x 32 V columns
 constexpr int kBwdWarps = 4;     // K3 block: 4 warps ...
@@ -78,6 +78,17 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p, const T* x) {
   }
 }
 
+// One 16-byte streaming (evict-first) store of kVec<T> elements, for an
+// output that is written once and not read again by the same kernel.
+template <typename T>
+__device__ __forceinline__ void stream_vec(T* __restrict__ p, const T* x) {
+  if constexpr (sizeof(T) == 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(x[0], x[1], x[2], x[3]));
+  } else {
+    __stcs(reinterpret_cast<double2*>(p), make_double2(x[0], x[1]));
+  }
+}
+
 // Stage ROWS rows of a row-major (rows, d) matrix into shared memory, zero
 // past the last row and past feature d.
 template <int ROWS, typename T>
@@ -122,28 +133,126 @@ __device__ __forceinline__ T sq_dist(const T* a, const T (&b)[kMaxD], int d) {
 
 // ---------------------------------------------------------------------------
 // K1: pairwise squared distances (pallas_gram.py _sqdist_kernel).
-// Block (32, 8) owns a 32 x 32 output tile. The tile's A rows sit in shared
-// memory (read as broadcasts), each thread keeps its B column in registers,
-// and a warp stores 32 neighbouring columns of one row: coalesced 128-byte
-// (f32) rows of the row-major output.
+// Bound by the n m values it writes (100 MB for the flagship's 4096 x 6144
+// f32 cross-Gram, 127 MB for the VFE's 1027 x 30848 Kmn), so the design
+// serves the stores, as K2's does. A block of 8 warps owns a tile of 32
+// rows x 32 V columns (V = 4 floats or 2 doubles); each thread keeps the
+// points of its V columns in registers and writes one 16-byte vector per
+// row, so a warp stores 512 contiguous bytes of a row per instruction. The
+// tile's 32 row points are staged in shared memory once and read as
+// broadcasts. d is a template argument: the feature loop unrolls with no
+// runtime test and every point stays in registers. Every store is a
+// streaming (evict-first) store: the kernel never reads its output, and
+// on an H100 streaming stores came closer to the bound than plain ones at
+// every tile size tried (tools/k1_design.py variants).
+//
+// Rows start 16-byte aligned only when m is a multiple of V and the output
+// is aligned. Otherwise (SHIFT) row r's 16-byte boundaries sit s_r columns
+// past a multiple of V, with s_r in [0, V) known from r m and the output's
+// offset. A thread then holds 2V - 1 column points, writes the V columns
+// that start at its first one plus s_r as one 16-byte vector (a switch on
+// s_r keeps every register index a constant), and the thread of column 0
+// writes the row's first s_r columns as scalars; a vector that would cross
+// the row's end is written as scalars. So every shape keeps the 16-byte
+// body, and every output element is written exactly once.
+//
+// Distances are direct per-feature differences summed in feature order:
+// coincident points give exactly 0.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void sqdist_kernel(const T* __restrict__ A, const T* __restrict__ B,
-                              T* __restrict__ out, int64_t n, int64_t m,
-                              int d) {
-  __shared__ T a_s[kTile][kMaxD];
-  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * kTile;
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x;
-  stage_rows<kTile>(A, n, d, row0, a_s);
-  T b[kMaxD];
-  load_point(B, col, m, d, b);
-  __syncthreads();
-  if (col >= m) return;
+template <typename T, int D>
+__device__ __forceinline__ T sq_dist_d(const T (&a)[D], const T (&b)[D]) {
+  T acc = T(0);
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int r = threadIdx.y + i * kBlockRows;
+  for (int k = 0; k < D; ++k) {
+    const T diff = a[k] - b[k];
+    acc += diff * diff;
+  }
+  return acc;
+}
+
+// v[e] = |a - b[S + e]|^2 for the V columns that start S points in
+template <int S, typename T, int V, int D, int P>
+__device__ __forceinline__ void dists_from(const T (&a)[D],
+                                           const T (&b)[P][D], T (&v)[V]) {
+#pragma unroll
+  for (int e = 0; e < V; ++e) v[e] = sq_dist_d<T, D>(a, b[S + e]);
+}
+
+template <typename T, int V, int D, int P>
+__device__ __forceinline__ void dists_shifted(const T (&a)[D],
+                                              const T (&b)[P][D], int s,
+                                              T (&v)[V]) {
+  if constexpr (P == V) {
+    dists_from<0>(a, b, v);
+  } else if constexpr (V == 4) {
+    switch (s) {
+      case 0: dists_from<0>(a, b, v); break;
+      case 1: dists_from<1>(a, b, v); break;
+      case 2: dists_from<2>(a, b, v); break;
+      default: dists_from<3>(a, b, v); break;
+    }
+  } else {
+    if (s == 0) {
+      dists_from<0>(a, b, v);
+    } else {
+      dists_from<1>(a, b, v);
+    }
+  }
+}
+
+template <typename T, int V, int D, bool SHIFT>
+__global__ void __launch_bounds__(kDistWarps * 32)
+    sqdist_kernel(const T* __restrict__ A, const T* __restrict__ B,
+                  T* __restrict__ out, int64_t n, int64_t m, int out_off) {
+  constexpr int P = SHIFT ? 2 * V - 1 : V;  // column points a thread holds
+  __shared__ T a_s[kDistRows][D];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * kDistRows;
+  const int64_t c0 = (static_cast<int64_t>(blockIdx.x) * 32 + lane) * V;
+  for (int e = threadIdx.x; e < kDistRows * D; e += blockDim.x) {
+    const int64_t g = row0 + e / D;
+    a_s[e / D][e % D] = g < n ? A[g * D + e % D] : T(0);
+  }
+  T b[P][D];
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      b[q][k] = c0 + q < m ? B[(c0 + q) * D + k] : T(0);
+    }
+  }
+  __syncthreads();
+  if (c0 >= m) return;
+#pragma unroll
+  for (int i = 0; i < kDistRows / kDistWarps; ++i) {
+    const int r = warp + i * kDistWarps;
     const int64_t row = row0 + r;
-    if (row < n) out[row * m + col] = sq_dist(a_s[r], b, d);
+    if (row >= n) break;
+    T a[D];
+#pragma unroll
+    for (int k = 0; k < D; ++k) a[k] = a_s[r][k];
+    T* __restrict__ out_row = out + row * m;
+    // warp-uniform: every lane of the warp works on this row
+    const int s = SHIFT ? static_cast<int>((V - (out_off + row * m) % V) % V)
+                        : 0;
+    T v[V];
+    dists_shifted<T, V, D, P>(a, b, s, v);
+    const int64_t col = c0 + s;
+    if (col + V <= m) {
+      stream_vec<T>(out_row + col, v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        if (col + e < m) __stcs(out_row + col + e, v[e]);
+      }
+    }
+    if (SHIFT && c0 == 0) {  // the row's head, before its first boundary
+#pragma unroll
+      for (int e = 0; e < V - 1; ++e) {
+        if (e < s && e < m) __stcs(out_row + e, sq_dist_d<T, D>(a, b[e]));
+      }
+    }
   }
 }
 
@@ -408,19 +517,46 @@ __global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks<T>)
 // ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
-inline dim3 tile_grid(int64_t rows, int64_t cols) {
-  return dim3(static_cast<unsigned>((cols + kTile - 1) / kTile),
-              static_cast<unsigned>((rows + kTile - 1) / kTile));
+template <typename T, int D>
+void launch_sqdist_d(const T* A, const T* B, T* out, int64_t n, int64_t m,
+                     cudaStream_t s) {
+  constexpr int V = kVec<T>;
+  const int64_t groups = (m + V - 1) / V;  // V-column groups per row
+  const dim3 grid(static_cast<unsigned>((groups + 31) / 32),
+                  static_cast<unsigned>((n + kDistRows - 1) / kDistRows));
+  const dim3 block(kDistWarps * 32);
+  // the output's offset past a 16-byte boundary, in elements
+  const int off = static_cast<int>(
+      reinterpret_cast<uintptr_t>(out) / sizeof(T) % V);
+  if (off == 0 && m % V == 0) {
+    sqdist_kernel<T, V, D, false><<<grid, block, 0, s>>>(A, B, out, n, m, 0);
+  } else {
+    sqdist_kernel<T, V, D, true><<<grid, block, 0, s>>>(A, B, out, n, m, off);
+  }
 }
 
 template <typename T>
 int launch_sqdist(const T* A, const T* B, T* out, int64_t n, int64_t m, int d,
                   void* stream) {
-  if (n > 0 && m > 0) {
-    sqdist_kernel<T><<<tile_grid(n, m), dim3(kTile, kBlockRows), 0,
-                       static_cast<cudaStream_t>(stream)>>>(A, B, out, n, m,
-                                                             d);
+  if (n == 0 || m == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define GPIM_SQDIST_CASE(D)                          \
+  case D:                                            \
+    launch_sqdist_d<T, D>(A, B, out, n, m, s);       \
+    break;
+  switch (d) {
+    GPIM_SQDIST_CASE(1)
+    GPIM_SQDIST_CASE(2)
+    GPIM_SQDIST_CASE(3)
+    GPIM_SQDIST_CASE(4)
+    GPIM_SQDIST_CASE(5)
+    GPIM_SQDIST_CASE(6)
+    GPIM_SQDIST_CASE(7)
+    GPIM_SQDIST_CASE(8)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef GPIM_SQDIST_CASE
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,6 @@
 """
-Functional exact-GP core on tensors (counterpart of
-``gpim_tpu/gpreg/engine.py``, exact subset).
+Functional GP core on tensors (counterpart of ``gpim_tpu/gpreg/engine.py``):
+the exact marginal likelihood and the sparse Titsias VFE bound.
 
 - Observations are NaN-compacted on host and padded to a bucket size; a 0/1
   mask folds the padding out of the marginal likelihood exactly (padded
@@ -14,9 +14,11 @@ Functional exact-GP core on tensors (counterpart of
 - Training is a Python loop of ``torch.optim.Adam`` steps that never waits
   for the device: losses, raw parameters and Cholesky status are recorded
   into preallocated device tensors and read once after the loop.
+- The sparse path is the Titsias variational free energy (VFE) bound with
+  trainable inducing points ``Xu``; its n-wide core (:class:`_VFEWide`) has
+  a closed-form backward. On CUDA its Gram matrices Kmm and Kmn, and the
+  per-chunk Ks of its predictor, run kernel K1.
 - Prediction runs over fixed-size chunks of the test grid.
-
-The sparse (VFE) objective and predictor come with a later slice.
 """
 
 import math
@@ -29,12 +31,12 @@ from gpim_tpu_torch.kernels.transforms import (
     interval_forward, interval_log_jacobian, positive_forward)
 from gpim_tpu_torch.ops import gram_kernels
 from gpim_tpu_torch.ops.gram import pairwise_sq_dist
-from gpim_tpu_torch.ops.linalg import safe_cholesky
+from gpim_tpu_torch.ops.linalg import safe_cholesky, solve_triangular
 from gpim_tpu_torch.ops.tri import tri_inverse
 
 __all__ = [
-    "constrain", "exact_loss", "train", "predict_exact", "pad_rows",
-    "chunk_rows",
+    "constrain", "exact_loss", "vfe_loss", "train", "predict_exact",
+    "predict_vfe", "pad_rows", "chunk_rows",
 ]
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -50,8 +52,9 @@ def constrain(u, bounds):
     """Map unconstrained parameters to their constrained domains.
 
     Keys of ``u``: 'lengthscale', 'variance', 'noise', optional 'alpha'
-    (RationalQuadratic). ``bounds``: 'ls_lo', 'ls_hi', 'var_lo', 'var_hi'.
-    Leading batch axes of ``u`` broadcast against the bounds.
+    (RationalQuadratic), optional 'Xu' (inducing points, unconstrained).
+    ``bounds``: 'ls_lo', 'ls_hi', 'var_lo', 'var_hi'. Leading batch axes of
+    ``u`` broadcast against the bounds.
     """
     p = {
         "lengthscale": interval_forward(
@@ -62,6 +65,8 @@ def constrain(u, bounds):
     }
     if "alpha" in u:
         p["alpha"] = positive_forward(u["alpha"])
+    if "Xu" in u:
+        p["Xu"] = u["Xu"]
     return p
 
 
@@ -76,8 +81,11 @@ def _log_jacobian(u, bounds):
 def _record(p):
     """Per-iteration hyperparameter snapshot (the public `hyperparams`
     contract)."""
-    return {"lengthscale": p["lengthscale"], "variance": p["variance"],
-            "noise": p["noise"]}
+    rec = {"lengthscale": p["lengthscale"], "variance": p["variance"],
+           "noise": p["noise"]}
+    if "Xu" in p:
+        rec["inducing_points"] = p["Xu"]
+    return rec
 
 
 # --------------------------------------------------------------------------
@@ -208,39 +216,131 @@ class _NLLFast(torch.autograd.Function):
 
 
 # --------------------------------------------------------------------------
+# Sparse (VFE) bound with trainable inducing points
+# --------------------------------------------------------------------------
+
+def _vfe_loss_info(u, X, y, mask, bounds, jitter, kernel):
+    kfn = get_kernel_fn(kernel)
+    p = constrain(u, bounds)
+    Xu = p["Xu"]
+    noise = p["noise"]
+    eye = torch.eye(Xu.shape[0], dtype=X.dtype, device=X.device)
+    # Xu enters Kmm twice: autograd adds K1's gradient in both arguments
+    Kmm = kfn(p, Xu, Xu) + jitter * eye
+    Kmn = kfn(p, Xu, X) * mask[None, :]
+    Lm, info_m = safe_cholesky(Kmm)
+    # explicit Lm^-1 turns the wide (m, n) triangular solve into a gemm
+    Vm = tri_inverse(Lm)
+    ym = y * mask
+    B, a, t = _VFEWide.apply(Vm, Kmn, ym, noise, Lm)
+    LB, info_b = safe_cholesky(B)
+    c = solve_triangular(LB, a, lower=True) / torch.sqrt(noise)
+    kdiag = kernel_diag(kernel, p, X) * mask
+    trace_term = kdiag.sum() / noise - t
+    nll = (0.5 * mask.sum() * (_LOG_2PI + torch.log(noise))
+           + torch.log(torch.diagonal(LB)).sum()
+           + 0.5 * torch.dot(ym, ym) / noise
+           - 0.5 * torch.dot(c, c)
+           + 0.5 * trace_term)
+    return nll - _log_jacobian(u, bounds), torch.stack([info_m, info_b])
+
+
+def vfe_loss(u, X, y, mask, bounds, jitter, *, kernel):
+    """Masked Titsias VFE bound (negated) with trainable inducing points
+    ``u['Xu']`` + MAP prior terms (gpim_tpu/gpreg/engine.py:344-375)."""
+    return _vfe_loss_info(u, X, y, mask, bounds, jitter, kernel)[0]
+
+
+class _VFEWide(torch.autograd.Function):
+    """The n-wide core of the VFE bound, with a closed-form backward
+    (gpim_tpu/gpreg/engine.py:378-446).
+
+    Returns (B, a, t): B = I + A A^T, a = A ym, t = sum(A^2), where
+    A = Vm Kmn / sqrt(noise) is the whitened feature matrix. Whitening
+    BEFORE squaring keeps B's conditioning that of the whitened features in
+    float32. The backward runs one n-wide gemm: the identities
+    A Kmn^T = sqrt(noise) (B - I) Lm^T and Kmn ym = sqrt(noise) Lm a turn
+    dVm and dnoise into m^3 and m^2 work. ``Lm`` must be Vm^-1; it only
+    evaluates those identities and takes no gradient (its gradient arrives
+    through Vm).
+    """
+
+    @staticmethod
+    def forward(ctx, Vm, Kmn, ym, noise, Lm):
+        A = (Vm @ Kmn) / torch.sqrt(noise)
+        eye = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+        B = eye + A @ A.T
+        a = A @ ym
+        ctx.save_for_backward(A, B, a, noise, Lm, ym)
+        return B, a, (A * A).sum()
+
+    @staticmethod
+    def backward(ctx, dB, da, dt):
+        A, B, a, noise, Lm, ym = ctx.saved_tensors
+        eye = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+        # dA = (dB + dB^T + 2 dt I) A + da ym^T =: S A + da ym^T
+        S = dB + dB.T + 2.0 * dt * eye
+        BmI = B - eye                                     # = A A^T
+        # dKmn = Vm^T dA / sqrt(noise), Vm^T = Lm^-T: fold S through the
+        # same whitened A (one wide gemm) plus a rank-1 term
+        M1 = solve_triangular(Lm.T, S, lower=False)
+        w = solve_triangular(Lm.T, da, lower=False)
+        dKmn = (M1 @ A + w[:, None] * ym[None, :]) / torch.sqrt(noise)
+        dVm = S @ (BmI @ Lm.T) + torch.outer(da, Lm @ a)
+        dym = A.T @ da
+        # noise enters only through A's 1/sqrt(noise)
+        dnoise = -((S * BmI).sum() + torch.dot(da, a)) / (2.0 * noise)
+        return dVm, dKmn, dym, dnoise, None
+
+
+# --------------------------------------------------------------------------
 # Training: a host loop of Adam steps that never waits for the device
 # --------------------------------------------------------------------------
 
-def _check_cholesky(infos, what):
-    """Raise if any recorded Cholesky status is nonzero (one host sync)."""
-    infos = infos.cpu().numpy().reshape(-1)
-    bad = np.flatnonzero(infos)
+def _check_cholesky(infos, what, factors=("",)):
+    """Raise if any recorded Cholesky status is nonzero (one host sync).
+    ``infos`` is (steps, len(factors)) or flat, one status per factor."""
+    infos = infos.cpu().numpy().reshape(-1, len(factors))
+    bad = np.argwhere(infos)
     if bad.size:
+        step, f = bad[0]
         raise torch.linalg.LinAlgError(
-            "%s: Cholesky failed at step %d (leading minor of order %d is "
-            "not positive definite)" % (what, bad[0], infos[bad[0]]))
+            "%s: Cholesky%s failed at step %d (leading minor of order %d is "
+            "not positive definite)" % (
+                what, " of " + factors[f] if factors[f] else "", step,
+                infos[step, f]))
 
 
-def train(u0, X, y, mask, bounds, lr, jitter, *, kernel, iterations):
-    """Run ``iterations`` Adam steps; returns (final_u, trajectory dict).
+_VFE_FACTORS = ("Kmm", "B")
+
+
+def train(u0, X, y, mask, bounds, lr, jitter, *, kernel, iterations,
+          sparse=False):
+    """Run ``iterations`` Adam steps on the exact MLL or, with ``sparse``,
+    the VFE bound (``u0`` then holds 'Xu'); returns (final_u, trajectory
+    dict).
 
     The trajectory holds the post-update constrained hyperparameters of
-    every iteration plus the pre-update loss. Adam is ``torch.optim.Adam``,
-    whose update m_hat / (sqrt(v_hat) + 1e-8) is optax.adam's. Nothing in
-    the loop reads a device value: the Cholesky status of every step is
-    checked once at the end, and a failure raises
+    every iteration (and the inducing points, when sparse) plus the
+    pre-update loss. Adam is ``torch.optim.Adam``, whose update
+    m_hat / (sqrt(v_hat) + 1e-8) is optax.adam's. Nothing in the loop reads
+    a device value: the Cholesky status of every step (of Kmm and B, when
+    sparse) is checked once at the end, and a failure raises
     ``torch.linalg.LinAlgError``.
     """
+    loss_info = _vfe_loss_info if sparse else _exact_loss_info
+    factors = _VFE_FACTORS if sparse else ("",)
     u = {k: v.detach().clone().requires_grad_(True) for k, v in u0.items()}
     opt = torch.optim.Adam(list(u.values()), lr=lr)
     dev = X.device
     losses = torch.empty((iterations,), dtype=X.dtype, device=dev)
-    infos = torch.zeros((iterations,), dtype=torch.int32, device=dev)
+    infos = torch.zeros((iterations, len(factors)), dtype=torch.int32,
+                        device=dev)
     u_traj = {k: torch.empty((iterations,) + tuple(v.shape), dtype=v.dtype,
                              device=dev) for k, v in u.items()}
     for i in range(iterations):
         opt.zero_grad(set_to_none=True)
-        loss, info = _exact_loss_info(u, X, y, mask, bounds, jitter, kernel)
+        loss, info = loss_info(u, X, y, mask, bounds, jitter, kernel)
         loss.backward()
         opt.step()
         with torch.no_grad():
@@ -248,7 +348,7 @@ def train(u0, X, y, mask, bounds, lr, jitter, *, kernel, iterations):
             infos[i] = info
             for k, v in u.items():
                 u_traj[k][i] = v
-    _check_cholesky(infos, "train")
+    _check_cholesky(infos, "train", factors)
     with torch.no_grad():
         # constrain the raw trajectory in one batched pass
         traj = _record(constrain(u_traj, bounds))
@@ -289,6 +389,46 @@ def predict_exact(u, X, y, mask, bounds, jitter, Xtest_chunks, *,
             var = var + p["noise"]
         variances[c] = var.clamp_min(0.0)
     _check_cholesky(info, "predict")
+    return means.reshape(-1), variances.reshape(-1)
+
+
+@torch.no_grad()
+def predict_vfe(u, X, y, mask, bounds, jitter, Xtest_chunks, *,
+                kernel, noiseless=False):
+    """Sparse (VFE) GP predictive mean/variance over chunked test points
+    (``u`` holds 'Xu'); chunks run one after another, as in
+    :func:`predict_exact`."""
+    kfn = get_kernel_fn(kernel)
+    p = constrain(u, bounds)
+    Xu = p["Xu"]
+    noise = p["noise"]
+    eye = torch.eye(Xu.shape[0], dtype=X.dtype, device=X.device)
+    Kmm = kfn(p, Xu, Xu) + jitter * eye
+    Kmn = kfn(p, Xu, X) * mask[None, :]
+    Lm, info_m = safe_cholesky(Kmm)
+    # one explicit inverse each: every per-chunk triangular solve below
+    # becomes a gemm
+    Vm = tri_inverse(Lm)
+    A = (Vm @ Kmn) / torch.sqrt(noise)
+    del Kmn
+    LB, info_b = safe_cholesky(eye + A @ A.T)
+    VB = tri_inverse(LB)
+    c = (VB @ (A @ (y * mask))) / torch.sqrt(noise)
+    del A
+    n_chunks, chunk = Xtest_chunks.shape[:2]
+    means = torch.empty((n_chunks, chunk), dtype=X.dtype, device=X.device)
+    variances = torch.empty_like(means)
+    for i in range(n_chunks):
+        xc = Xtest_chunks[i]
+        w1 = Vm @ kfn(p, xc, Xu).T                        # (m, chunk)
+        w2 = VB @ w1                                      # (m, chunk)
+        means[i] = w2.T @ c
+        var = (kernel_diag(kernel, p, xc) - (w1 * w1).sum(dim=0)
+               + (w2 * w2).sum(dim=0))
+        if not noiseless:
+            var = var + noise
+        variances[i] = var.clamp_min(0.0)
+    _check_cholesky(torch.stack([info_m, info_b]), "predict", _VFE_FACTORS)
     return means.reshape(-1), variances.reshape(-1)
 
 

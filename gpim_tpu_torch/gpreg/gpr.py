@@ -1,6 +1,6 @@
 """
-Exact GP reconstruction of NaN-masked grids on PyTorch (counterpart of
-``gpim_tpu/gpreg/gpr.py``, exact branch).
+Exact and sparse (inducing-point VFE) GP reconstruction of NaN-masked grids
+on PyTorch (counterpart of ``gpim_tpu/gpreg/gpr.py``).
 
 Same constructor signature as the reference's
 ``gpim.gpreg.gpr.reconstructor``, ``train`` / ``predict`` / ``run``
@@ -10,9 +10,13 @@ CPU with ``use_gpu=False``; without a CUDA device the default raises and
 never quietly runs on the CPU. (The reference ignores ``use_gpu`` and always
 runs on its accelerator.)
 
-Not ported yet, and raising ``NotImplementedError``: ``sparse=True`` (the
-VFE slice), ``mesh=`` (the parallel slice) and ``step()`` (which needs the
-acquisition helpers of the gpbayes slice).
+``sparse=True`` trains the Titsias VFE bound with trainable inducing
+points, initialised as a strided subsample of the observations, and
+records their trajectory in ``hyperparams['inducing_points']``.
+
+Not ported yet, and raising ``NotImplementedError``: ``mesh=`` (the parallel
+slice) and ``step()`` (which needs the acquisition helpers of the gpbayes
+slice).
 """
 
 import time
@@ -60,7 +64,8 @@ class reconstructor:
     Args mirror the reference (gpr.py:74-168): X (c, N, M[, L]) grid indices
     with NaNs at missing points, y (N, M[, L]) observations with NaNs, Xtest
     full prediction grid, kernel in {'RBF', 'Matern52', 'RationalQuadratic'},
-    lengthscale bounds, learning_rate, iterations, use_gpu (default True:
+    lengthscale bounds, sparse/indpoints for inducing-point VFE
+    regression, learning_rate, iterations, use_gpu (default True:
     the CUDA device, RuntimeError without one; False: the CPU), verbose,
     seed, and kwargs: amplitude (variance bounds), precision
     ('single'/'double'; default: double on the CPU, single on CUDA),
@@ -81,11 +86,6 @@ class reconstructor:
                  verbose=1,
                  seed=0,
                  **kwargs):
-        del indpoints  # inducing points belong to the sparse model
-        if sparse:
-            raise NotImplementedError(
-                "sparse (VFE) regression is not ported yet; it comes with "
-                "the VFE slice of gpim_tpu_torch")
         if kwargs.get("mesh") not in (None, False):
             raise NotImplementedError(
                 "mesh= is not ported yet; it comes with the parallel slice "
@@ -103,7 +103,7 @@ class reconstructor:
         self.verbose = verbose
         self.seed = seed
         self.kernel_type = kernel
-        self.do_sparse = False
+        self.do_sparse = bool(sparse)
         input_dim = np.ndim(y)
 
         # --- host-side data prep (NaN compaction), reference gpr.py:115 ---
@@ -156,6 +156,17 @@ class reconstructor:
         }
         if kernel == "RationalQuadratic":
             self.u["alpha"] = positive_inverse(one)
+        if sparse:
+            # strided subsample of the observations (gpim_tpu gpr.py:167-178)
+            if indpoints is None:
+                indpoints = max(len(X_np) // 10, 1)
+            else:
+                indpoints = min(indpoints, len(X_np))
+            Xu = X_np[::len(X_np) // indpoints].copy()
+            if self.verbose == 2:
+                print("# of inducing points for sparse GP regression: "
+                      "{}".format(len(Xu)))
+            self.u["Xu"] = self._tensor(Xu)
 
         self._set_data(X_np, y_np)
         self.hyperparams = {}
@@ -205,7 +216,8 @@ class reconstructor:
     # ------------------------------------------------------------------
 
     def train(self, **kwargs):
-        """Optimize hyperparameters by Adam on the masked exact MLL."""
+        """Optimize hyperparameters (and inducing points) by Adam on the
+        masked exact MLL / sparse VFE bound."""
         if kwargs.get("learning_rate") is not None:
             self.learning_rate = kwargs.get("learning_rate")
         if kwargs.get("iterations") is not None:
@@ -219,7 +231,8 @@ class reconstructor:
             self.u, traj = engine.train(
                 self.u, self._Xd, self._yd, self._maskd, self._bounds(),
                 float(self.learning_rate), self.jitter,
-                kernel=self.kernel_type, iterations=int(self.iterations))
+                kernel=self.kernel_type, iterations=int(self.iterations),
+                sparse=self.do_sparse)
         traj = {k: v.cpu().numpy() for k, v in traj.items()}
         self._traj_list.append(traj)
         self._assemble_hyperparams()
@@ -245,9 +258,10 @@ class reconstructor:
         """Concatenate trajectories across train() calls, as the
         reference's Python lists accumulate (gpr.py:160-168,195-199)."""
         cat = {k: np.concatenate([t[k] for t in self._traj_list])
-               for k in ("lengthscale", "noise", "variance", "loss")}
+               for k in self._traj_list[0]}
         self.losses = cat.pop("loss")
-        cat["inducing_points"] = np.zeros((0,), _NP_DTYPE[self.dtype])
+        cat.setdefault("inducing_points",
+                       np.zeros((0,), _NP_DTYPE[self.dtype]))
         self.hyperparams = cat
 
     # ------------------------------------------------------------------
@@ -283,7 +297,9 @@ class reconstructor:
                         dtypes.round_up(len(self.Xtest), 128))
             chunks, n_test = engine.chunk_rows(
                 np.nan_to_num(self.Xtest), chunk)
-            mean, var = engine.predict_exact(
+            predict_fn = engine.predict_vfe if self.do_sparse \
+                else engine.predict_exact
+            mean, var = predict_fn(
                 self.u, self._Xd, self._yd, self._maskd, self._bounds(),
                 self.jitter, self._tensor(chunks),
                 kernel=self.kernel_type, noiseless=False)

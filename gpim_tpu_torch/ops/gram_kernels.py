@@ -1,6 +1,7 @@
 """
-The exact-GP path's three kernels: CUDA for Hopper, each beside its plain
-PyTorch version. Counterpart of ``gpim_tpu/ops/pallas_gram.py``.
+The three kernels of the exact-GP and VFE paths: CUDA for Hopper, each
+beside its plain PyTorch version. Counterpart of
+``gpim_tpu/ops/pallas_gram.py``.
 
 Dispatch rule, the same for every wrapper: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel (``csrc/gram_kernels.cu``, built
@@ -103,10 +104,16 @@ def _stream(t):
 #
 # Replaces pairwise_sq_dist_pallas (gpim_tpu/ops/pallas_gram.py:93-103,
 # pallas_call at :77, body _sqdist_kernel :53-59). Bound by the n*m values
-# it writes (d <= 8 flops per value): at the flagship's (4096, 6144) f32
-# cross-Gram, 100 MB. The kernel writes every output once, a warp storing
-# 32 neighbouring columns of one row, with the tile's A rows in shared
-# memory and each thread's B point in registers. Direct per-feature
+# it writes (d <= 8 flops per value): 100 MB at the flagship's (4096, 6144)
+# f32 cross-Gram, 127 MB at the VFE's (1027, 30848) Kmn, every training
+# step. So the kernel is built for its stores, as K2 is: a block owns 32
+# rows x 128 columns (f32; 64 in f64), each thread writes one 16-byte
+# streaming (evict-first) store per row from column points held in
+# registers, the tile's row points are staged once, and d is a template
+# argument. Where rows do not start 16-byte aligned (m not a multiple of
+# the vector width, or a misaligned output) each row's vectors shift to
+# their own boundaries and the few head and tail columns are written one
+# by one. Direct per-feature
 # differences make coincident points exactly 0, with no norm-trick snap.
 # The backward is the closed form of pallas_gram.py:110-119 in torch.matmul
 # (the JAX backward is plain XLA too).

@@ -1,12 +1,13 @@
 """
 The CUDA kernels of gpim_tpu_torch against their plain PyTorch versions, on
-the card: ragged shapes (the kernels mask partial tiles themselves, and K2
-and K3 take their scalar instantiation where n is not a multiple of the
-16-byte vector width), operands that do not start 16-byte aligned, every
-feature count up to 8, both dtypes, determinism, the K1 gradient, the
-wrappers' validation and launch counts, and the closed-form MLL gradient
-against the CPU path. One test, of the bytes the kernels' bounds count,
-runs on the CPU.
+the card: ragged shapes (the kernels mask partial tiles themselves; K1
+shifts each row's 16-byte vectors to the row's own boundaries where m is not
+a multiple of the vector width, and K2 and K3 take their scalar
+instantiation where n is not), operands and outputs that do not start
+16-byte aligned, every feature count up to 8, both dtypes, determinism, the
+K1 gradient, the wrappers' validation and launch counts, and the
+closed-form MLL and VFE gradients against the CPU path. One test, of the
+bytes the kernels' bounds count, runs on the CPU.
 
 The tests marked ``cuda`` need a CUDA device and skip without one. The file
 imports no JAX, so it runs on a machine without it (there the repo's
@@ -48,19 +49,69 @@ def _close(out, ref, scale, dtype, tol=TOL):
     assert err <= tol[dtype] * max(float(scale), 1e-300), err
 
 
-@cuda
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,m,d", [(1, 1, 1), (33, 65, 3), (100, 37, 8),
-                                   (257, 129, 2)])
-def test_sqdist_ragged(dev, dtype, n, m, d):
+def _check_sqdist(out, A, B, dtype):
+    """out against the float64 plain version; the first min(n, m) // 2
+    points of A and B coincide and must give exactly 0."""
+    ref = gk.sqdist_plain(A.double(), B.double())
+    _close(out, ref, ref.abs().max(), dtype)
+    k = min(len(A), len(B)) // 2
+    assert (torch.diagonal(out[:k, :k]) == 0).all()
+
+
+def _sqdist_inputs(n, m, d, dtype, dev):
     A = _rand((n, d), dtype, dev, 30.0, seed=1)
     B = _rand((m, d), dtype, dev, 30.0, seed=2)
     B[: min(n, m) // 2] = A[: min(n, m) // 2]
-    out = gk.sqdist(A, B)
-    ref = gk.sqdist_plain(A.double(), B.double())
-    _close(out, ref, ref.abs().max(), dtype)
-    k = min(n, m) // 2
-    assert (torch.diagonal(out[:k, :k]) == 0).all()
+    return A, B
+
+
+# m % 4 == 0 (f32) or m % 2 == 0 (f64) with an aligned output takes the
+# vector path; every other m the shifted one (1027: the VFE's Kmm and Ks)
+SQDIST_M = [1, 3, 4, 5, 127, 128, 129, 1027]
+SQDIST_N = [1, 63, 64, 65, 1000]
+
+
+@cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", range(1, 9))
+@pytest.mark.parametrize("n", SQDIST_N)
+@pytest.mark.parametrize("m", SQDIST_M)
+def test_sqdist_ragged(dev, dtype, m, n, d):
+    A, B = _sqdist_inputs(n, m, d, dtype, dev)
+    _check_sqdist(gk.sqdist(A, B), A, B, dtype)
+
+
+def _shifted(t, elems):
+    """A contiguous copy of t that starts ``elems`` elements past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    s = buf[elems:elems + t.numel()].view(t.shape)
+    s.copy_(t)
+    assert s.is_contiguous()
+    assert s.data_ptr() % 16 == elems * t.element_size() % 16
+    return s
+
+
+@cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [128, 129])
+def test_sqdist_misaligned_operands_and_output(dev, dtype, m):
+    """A and B 4 or 8 bytes off a 16-byte boundary through the wrapper, and
+    an output that starts 1 (and, in f32, 2 and 3) elements off one through
+    the C entry point: each row's vectors shift to its own boundaries."""
+    n, d = 65, 3
+    A, B = _sqdist_inputs(n, m, d, dtype, dev)
+    _check_sqdist(gk.sqdist(_shifted(A, 1), _shifted(B, 1)), A, B, dtype)
+    for off in range(1, 16 // A.element_size()):
+        buf = torch.full((n * m + 4,), float("nan"), dtype=dtype, device=dev)
+        out = buf[off:off + n * m].view(n, m)
+        gk._launch("gpim_sqdist", dtype, gk._ptr(A), gk._ptr(B),
+                   gk._ptr(out), n, m, d, gk._stream(A))
+        torch.cuda.synchronize()
+        _check_sqdist(out, A, B, dtype)
+        # nothing written outside the output
+        assert torch.isnan(buf[:off]).all()
+        assert torch.isnan(buf[off + n * m:]).all()
 
 
 # n % 4 == 0 (f32) or n % 2 == 0 (f64) takes the 16-byte vector path
@@ -186,6 +237,19 @@ def test_sqdist_gradient_on_cuda(dev):
 
 
 @cuda
+@pytest.mark.parametrize("m", [128, 1027])
+def test_sqdist_gradient_of_one_point_set_against_itself(dev, m):
+    """Kmm = k(Xu, Xu): the same tensor in both arguments, so autograd adds
+    K1's two gradients; against the CPU path's."""
+    X = _rand((m, 3), torch.float64, dev, 5.0, seed=13).requires_grad_(True)
+    G = _rand((m, m), torch.float64, dev, seed=14)
+    (gk.sqdist(X, X) * G).sum().backward()
+    Xc = X.detach().cpu().requires_grad_(True)
+    (gk.sqdist_plain(Xc, Xc) * G.cpu()).sum().backward()
+    torch.testing.assert_close(X.grad.cpu(), Xc.grad, rtol=1e-11, atol=1e-9)
+
+
+@cuda
 def test_each_launch_counts_once(dev):
     X = _rand((64, 2), torch.float32, dev)
     mask = torch.ones(64, dtype=torch.float32, device=dev)
@@ -252,3 +316,40 @@ def test_closed_form_loss_and_gradient_cuda_vs_cpu(dev, kernel):
             u[k].grad.cpu() for k in u0]
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12)
+
+
+@cuda
+@pytest.mark.parametrize("kernel", ["RBF", "Matern52", "RationalQuadratic"])
+def test_vfe_loss_and_gradient_cuda_vs_cpu(dev, kernel):
+    """The VFE bound and its gradient in every parameter, the inducing
+    points included, through K1 on the card against the CPU path, f64."""
+    rng = np.random.RandomState(15)
+    n_obs, n, m = 150, 256, 37
+    X = np.zeros((n, 3))
+    X[:n_obs] = rng.rand(n_obs, 3) * 10
+    y = np.zeros(n)
+    y[:n_obs] = np.sin(X[:n_obs, 0]) + 0.05 * rng.randn(n_obs)
+    mask = np.zeros(n)
+    mask[:n_obs] = 1.0
+    u0 = {"lengthscale": np.array([-0.4, 0.1, 0.0]),
+          "variance": np.asarray(0.3), "noise": np.asarray(-2.0),
+          "Xu": X[:n_obs:4][:m] + 0.1}
+    if kernel == "RationalQuadratic":
+        u0["alpha"] = np.asarray(0.2)
+    bounds = {"ls_lo": np.zeros(3), "ls_hi": np.full(3, 5.0),
+              "var_lo": np.asarray(1e-4), "var_hi": np.asarray(10.0)}
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        u = {k: t(v).requires_grad_(True) for k, v in u0.items()}
+        before = gk.sqdist.launches
+        loss = engine.vfe_loss(u, t(X), t(y), t(mask),
+                               {k: t(v) for k, v in bounds.items()}, 1e-5,
+                               kernel=kernel)
+        loss.backward()
+        if device.type == "cuda":
+            assert gk.sqdist.launches - before == 2      # Kmm and Kmn
+        out[device.type] = [loss.detach().cpu()] + [
+            u[k].grad.cpu() for k in u0]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-10)

@@ -1,7 +1,7 @@
 """
-gpim_tpu_torch.reconstructor (exact branch) against gpim_tpu.reconstructor
-on the same data: the twin of tests/test_gpr.py for the port, plus
-checkpoint interchange from the JAX package to the port.
+gpim_tpu_torch.reconstructor (exact and sparse branches) against
+gpim_tpu.reconstructor on the same data: the twin of tests/test_gpr.py for
+the port, plus checkpoint interchange from the JAX package to the port.
 """
 
 import numpy as np
@@ -59,6 +59,33 @@ def test_run_matches_gpim_tpu(kernel, precision):
     assert hp["inducing_points"].shape == (0,)
 
 
+@pytest.mark.parametrize("precision", ["double", "single"])
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_sparse_run_matches_gpim_tpu(kernel, precision):
+    """Twin of test_gpr.py::test_gpr_sparse_shapes, held against gpim_tpu:
+    mean, sd and every hyperparams key, the inducing points included."""
+    R = get_dummy_data()
+    X, X_full = utils.get_sparse_grid(R), utils.get_full_grid(R)
+    kw = dict(kernel=kernel, sparse=True, indpoints=24, iterations=6,
+              learning_rate=0.1, verbose=0, precision=precision,
+              use_gpu=False)
+    mean, sd, hp = gpim_tpu_torch.reconstructor(X, R, X_full, **kw).run()
+    mean_j, sd_j, hp_j = gpim_tpu.reconstructor(X, R, X_full, **kw).run()
+    assert mean.shape == sd.shape == R.shape
+    assert not np.isnan(mean).any() and not np.isnan(sd).any()
+    rtol = 1e-6 if precision == "double" else 1e-3
+    assert_allclose(mean, mean_j, rtol=rtol, atol=rtol * np.abs(mean_j).max())
+    assert_allclose(sd, sd_j, rtol=rtol)
+    assert set(hp) == set(hp_j)
+    n_obs = int((~np.isnan(R)).sum())
+    assert hp["inducing_points"].shape == (6, len(range(0, n_obs,
+                                                        n_obs // 24)), 2)
+    for k in hp:
+        assert hp[k].shape == hp_j[k].shape, k
+        assert_allclose(hp[k], hp_j[k], rtol=rtol,
+                        atol=rtol * np.abs(hp_j[k]).max(), err_msg=k)
+
+
 def test_nan_rows_restored():
     """Predicting on a grid with NaN coordinates gives NaN there and the
     JAX package's values elsewhere (EI/POI rely on it)."""
@@ -105,6 +132,32 @@ def test_gpim_tpu_checkpoint_predicts_equally(tmp_path):
     with pytest.raises(ValueError):
         gpim_tpu_torch.reconstructor(X, R, X_full, kernel="RBF", verbose=0,
                                      use_gpu=False).load_model(str(path))
+
+
+def test_gpim_tpu_sparse_checkpoint_predicts_equally(tmp_path):
+    """A gpim_tpu sparse model's save_model (u_Xu included) -> the port's
+    load_model -> equal predictions; an exact model refuses it."""
+    R = get_dummy_data(seed=2)
+    X, X_full = utils.get_sparse_grid(R), utils.get_full_grid(R)
+    kw = dict(kernel="Matern52", sparse=True, indpoints=30, iterations=8,
+              verbose=0, precision="double", use_gpu=False)
+    model_j = gpim_tpu.reconstructor(X, R, X_full, **kw)
+    model_j.train()
+    path = tmp_path / "sparse.npz"
+    model_j.save_model(str(path))
+    mean_j, sd_j = model_j.predict()
+
+    model = gpim_tpu_torch.reconstructor(X, R, X_full, **kw)
+    model.load_model(str(path))
+    assert_allclose(model.u["Xu"].numpy(), np.asarray(model_j.u["Xu"]),
+                    rtol=0)
+    mean, sd = model.predict()
+    assert_allclose(mean, mean_j, rtol=1e-9, atol=1e-12)
+    assert_allclose(sd, sd_j, rtol=1e-9)
+    with pytest.raises(ValueError):
+        gpim_tpu_torch.reconstructor(
+            X, R, X_full, kernel="Matern52", verbose=0,
+            use_gpu=False).load_model(str(path))
 
 
 def test_exact_gp_matches_closed_form():
@@ -207,8 +260,7 @@ def test_default_placement_and_dtype_on_cpu():
 
 
 @pytest.mark.parametrize("bad", [
-    {"sparse": True}, {"mesh": True}, {"mesh": 4}, {"kernel": "Spectral"},
-    {"use_gpu": True}])
+    {"mesh": True}, {"mesh": 4}, {"kernel": "Spectral"}, {"use_gpu": True}])
 def test_unported_or_unavailable_options_raise(bad, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     R = get_dummy_data()
@@ -234,6 +286,22 @@ def test_step_raises_until_gpbayes_is_ported():
                                          use_gpu=False)
     with pytest.raises(NotImplementedError, match="gpbayes"):
         model.step()
+
+
+def test_sparse_default_inducing_points_and_verbose_print(capsys):
+    """indpoints=None takes a tenth of the observations, as gpim_tpu does,
+    and verbose=2 prints their count."""
+    R = get_dummy_data()
+    X = utils.get_sparse_grid(R)
+    kw = dict(sparse=True, verbose=2, use_gpu=False)
+    model = gpim_tpu_torch.reconstructor(X, R, **kw)
+    model_j = gpim_tpu.reconstructor(X, R, **kw)
+    assert_allclose(model.u["Xu"].numpy(), np.asarray(model_j.u["Xu"]),
+                    rtol=0)
+    out = capsys.readouterr().out.splitlines()
+    line = "# of inducing points for sparse GP regression: %d" % len(
+        model.u["Xu"])
+    assert out.count(line) == 2
 
 
 def test_same_grids_as_gpim_tpu_utils():
