@@ -14,9 +14,9 @@ runs on its accelerator.)
 points, initialised as a strided subsample of the observations, and
 records their trajectory in ``hyperparams['inducing_points']``.
 
-Not ported yet, and raising ``NotImplementedError``: ``mesh=`` (the parallel
-slice) and ``step()`` (which needs the acquisition helpers of the gpbayes
-slice).
+``step()`` trains, predicts and ranks the grid by an acquisition function
+(the exploration step of ``gpim_tpu``). Not ported yet, and raising
+``NotImplementedError``: ``mesh=`` (the parallel slice).
 """
 
 import time
@@ -356,9 +356,30 @@ class reconstructor:
         mean, sd = self.predict()
         return mean, sd, self.hyperparams
 
-    def step(self, *args, **kwargs):
-        """Not ported yet: the exploration step needs the acquisition
-        helpers that come with the gpbayes slice of gpim_tpu_torch."""
-        raise NotImplementedError(
-            "reconstructor.step is not ported yet; it comes with the "
-            "gpbayes slice of gpim_tpu_torch")
+    def step(self, acquisition_function=None,
+             batch_size=100, batch_update=False,
+             lscale=None, **kwargs):
+        """Single train-predict exploration step returning the next query
+        point(s) by maximum acquisition value (gpim_tpu/gpreg/gpr.py:430).
+
+        The reference's step calls a missing gprutils.acquisition
+        (gpr.py:326-328); this implements its documented contract.
+        ``acquisition_function`` takes (mean, sd) and defaults to pure
+        uncertainty (sd). Returns (vals, inds, mean.flatten(),
+        sd.flatten()).
+        """
+        from gpim_tpu_torch.gpbayes.acqfunc import rank_acquisition
+        if kwargs.get("learning_rate") is not None:
+            self.learning_rate = kwargs.get("learning_rate")
+        if kwargs.get("iterations") is not None:
+            self.iterations = kwargs.get("iterations")
+        self.train(learning_rate=self.learning_rate,
+                   iterations=self.iterations)
+        if lscale is None:
+            # read AFTER the retrain so batch spacing reflects the model's
+            # current correlation length, not the previous step's
+            lscale = float(np.mean(self.hyperparams["lengthscale"][-1]))
+        mean, sd = self.predict()
+        vals, inds = rank_acquisition(
+            mean, sd, acquisition_function, batch_size, batch_update, lscale)
+        return vals, inds, mean.flatten(), sd.flatten()

@@ -280,12 +280,22 @@ def test_default_device_is_the_card_and_raises_without_one(monkeypatch):
 
 
 def test_step_raises_until_gpbayes_is_ported():
+    """step() raised NotImplementedError until the gpbayes slice was
+    ported; now it trains, predicts and ranks as gpim_tpu's does (default
+    acquisition: the predictive sd)."""
     R = get_dummy_data()
-    model = gpim_tpu_torch.reconstructor(utils.get_sparse_grid(R), R,
-                                         utils.get_full_grid(R), verbose=0,
-                                         use_gpu=False)
-    with pytest.raises(NotImplementedError, match="gpbayes"):
-        model.step()
+    X, X_full = utils.get_sparse_grid(R), utils.get_full_grid(R)
+    kw = dict(iterations=5, verbose=0, precision="double", use_gpu=False)
+    vals, inds, mean, sd = gpim_tpu_torch.reconstructor(
+        X, R, X_full, **kw).step(batch_size=10)
+    vals_j, inds_j, mean_j, sd_j = gpim_tpu.reconstructor(
+        X, R, X_full, **kw).step(batch_size=10)
+    assert inds == inds_j and len(inds) == 10
+    assert mean.shape == sd.shape == (R.size,)
+    assert_allclose(vals, vals_j, rtol=1e-6)
+    assert_allclose(vals, sd[np.ravel_multi_index(np.array(inds).T,
+                                                  R.shape)], rtol=0)
+    assert_allclose(mean, mean_j, rtol=1e-6, atol=1e-6 * np.abs(mean_j).max())
 
 
 def test_sparse_default_inducing_points_and_verbose_print(capsys):
