@@ -21,7 +21,12 @@ its final line):
              float32 device time per call of each kernel, its plain version
              and (K1) torch.cdist, beside the kernel's bound: K2 and K3 from
              a warm loop of launches (_time_ms), K1 from a CUDA graph of
-             calls (_time_graph_ms).
+             calls (_time_graph_ms);
+             the batched kernels at the multi-output eels64 shapes (T = 64
+             tasks, n = 2048: K2, K3, and K1 on one 64 x 2048 x 2048
+             predict chunk) against their plain versions in float32 and
+             float64, each timed (a warm loop of launches) beside its
+             bound, its plain version and (K1) batched torch.cdist.
 4. flagship - reconstructor(X, R, X_full, kernel="RBF", iterations=250,
              precision="single").run() on the 128x128 spiral
              (examples/_data.spiral_scan, n = 6144 padded training rows,
@@ -53,8 +58,22 @@ its final line):
              float64 on the card against the CPU path;
              every run's kernel launches against what its code implies;
              ties in the ranking in ascending index order on the card.
-8. profile - torch.profiler over PROFILE_STEPS warm float32 training steps
-             of the flagship and of the VFE run, and over one warm BO step
+8. multi   - vreconstructor, built without use_gpu, at the two EELS
+             "parallel GP" rows of benchmarks/suite.py (RBF, independent,
+             100 iterations, float32): eels6 (6 channels of the band-
+             averaged BEPFM cube on its 32x32 grid, half the pixels
+             removed, n = 640 padded rows, a 2x denser 64x64 test grid) and
+             eels64 (64 channels on a 64x64 grid, n = 2048, 4096 test
+             points, the suite's rmse gate), cold then warm; eels6 in the
+             correlated (Kronecker) mode; eels6 in float64 against float32;
+             small problems in both modes on the card against the CPU;
+             every run's launches against what its code implies (K2 and K3
+             once an Adam step, K1 once for the Gram and once a predict
+             chunk); the batched Cholesky and triangular-inverse options at
+             the eels64 shape, timed.
+9. profile - torch.profiler over PROFILE_STEPS warm float32 training steps
+             of the flagship and of the VFE run, MULTI_PROFILE_STEPS of
+             eels6, eels64 and eels6 correlated, and over one warm BO step
              (refit, predict, acquisition, ranking) of bo25 EI (float32)
              and of the spiral run (float64): device ms by kernel and the
              device's idle share (printed; a profiler that records no
@@ -141,6 +160,20 @@ BO_RTOL = 1e-6             # float64 BO runs, two paths: vals_all
 # where EI has underflowed to exactly 0 at every candidate and the device
 # ranks the tie by ascending index, the host's argsort otherwise.
 TIE_ATOL = 1e-9
+# The multi-output rows of benchmarks/suite.py:249-275 (eels6) and 482-516
+# (eels64): RBF, independent channels, 100 Adam steps at vreconstructor's
+# default learning rate, float32 (the card's default precision).
+MULTI = dict(kernel="RBF", independent=True, iterations=100)
+MULTI_CHUNK = 2048           # vreconstructor's test points per chunk
+MULTI_TIMING_REPS = 20       # each batched call moves >= 1 GB
+MULTI_PROFILE_STEPS = 3
+# eels6 in float32 against float64 at the float32 jitter. Measured on an
+# H100: mean 7.2e-6, sd 1.2e-6, lengthscale 4.0e-5 and noise 1.0e-5 apart
+# (relative for the last two): the channels' likelihoods are well curved
+# and 100 steps converge in both precisions. Each limit is about ten times
+# its measured gap.
+MULTI_CROSS_TOL = {"mean_atol": 5e-5, "sd_atol": 1e-5, "ls_rtol": 4e-4,
+                   "noise_rtol": 1e-4}
 
 
 def log(msg):
@@ -183,6 +216,57 @@ def bo25_data():
                       for i in range(25)])
     return grid, utils.get_sparse_grid(grid), utils.get_full_grid(grid), \
         truth
+
+
+def eels6_data():
+    """benchmarks/suite.py:254-262: the BEPFM cube band-averaged into 6
+    channels, normalised, half its 32x32 pixels removed; the test grid 2x
+    denser (64x64)."""
+    import _data
+    from gpim_tpu_torch import utils
+    cube = _data.bepfm_cube()
+    bands = np.stack([cube[:, :, i * 15:(i + 1) * 15].mean(-1)
+                      for i in range(6)], axis=-1)
+    bands = (bands - bands.min()) / np.ptp(bands)
+    rng = np.random.default_rng(0)
+    Y = bands.copy()
+    Y[rng.random(bands.shape[:2]) < 0.5] = np.nan
+    X = utils.get_full_grid(Y[..., 0]).copy()
+    X[:, np.isnan(Y[..., 0])] = np.nan
+    return X, Y, utils.get_full_grid(Y[..., 0], dense_x=0.5)
+
+
+def eels64_data():
+    """benchmarks/suite.py:491-499: 64 smooth channels on a 64x64 grid with
+    noise 0.02, half the pixels removed; returns (X, Y, the full grid, the
+    noise-free fields)."""
+    from scipy.ndimage import gaussian_filter
+    from gpim_tpu_torch import utils
+    rng = np.random.RandomState(3)
+    g, T = 64, 64
+    fields = gaussian_filter(rng.randn(g, g, T), sigma=(5, 5, 0))
+    fields = (fields - fields.min()) / np.ptp(fields)
+    Y = fields + 0.02 * rng.randn(g, g, T)
+    Y[rng.random((g, g)) < 0.5] = np.nan
+    X = utils.get_full_grid(Y[..., 0]).copy()
+    X[:, np.isnan(Y[..., 0])] = np.nan
+    return X, Y, utils.get_full_grid(Y[..., 0]), fields
+
+
+def small_vector_data(seed=0):
+    """12x12 grid, 3 channels, 30% of the pixels missing
+    (tests/test_vgpr.py:15-28)."""
+    from gpim_tpu_torch import utils
+    rng = np.random.RandomState(seed)
+    xx, yy = np.meshgrid(np.arange(12.0), np.arange(12.0), indexing="ij")
+    base = np.exp(-((xx - 5) ** 2 + (yy - 7) ** 2) / 8.0)
+    Y = np.stack([base * (k + 1) * 0.3 + 0.05 * rng.rand(12, 12)
+                  for k in range(3)], axis=-1)
+    drop = rng.rand(12, 12) < 0.3
+    Y[drop] = np.nan
+    X = utils.get_full_grid(Y[..., 0]).copy()
+    X[:, drop] = np.nan
+    return X, Y, utils.get_full_grid(Y[..., 0])
 
 
 def small_data(seed=0):
@@ -285,13 +369,14 @@ def _time_graph_ms(fn, reps=TIMING_REPS):
     return start.elapsed_time(end) / reps
 
 
-def bound(name, n, d, m=None, dtype_name="float32"):
+def bound(name, n, d, m=None, dtype_name="float32", batch=1):
     """(least ms, "bytes" or "operations") the card could take for one call
-    at these shapes: the larger of the bytes it must move over the memory
-    rate and its operations over the peak rate of their type."""
+    at these shapes (``batch`` tasks): the larger of the bytes it must move
+    over the memory rate and its operations over the peak rate of their
+    type."""
     from gpim_tpu_torch.ops.gram_kernels import min_traffic
     itemsize = 4 if dtype_name == "float32" else 8
-    read, written, ops = min_traffic(name, n, d, m, itemsize)
+    read, written, ops = min_traffic(name, n, d, m, itemsize, batch)
     t_bytes = (read + written) / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -467,7 +552,140 @@ def _rbf_bwd_case(Xs, Xr, mask, y, vt, njt, dname):
     return err, ops
 
 
-def phase_kernels(R, X, X_full, vfe):
+def _eels64_kernel_inputs(eels64, dtype):
+    """The operands the eels64 path gives the batched kernels: the 64
+    channels' padded training rows (n = 2048) scaled by per-channel
+    lengthscales of a trained model (3-6 px, drawn from a seed), the mask,
+    v and noise + jitter per channel, and the first predict chunk's 2048
+    test points scaled the same way, its first 512 coincident with
+    training points."""
+    import torch
+    from gpim_tpu_torch import utils
+    from gpim_tpu_torch.gpreg import engine
+    X, Y, Xf, _ = eels64
+    X_np, Y_np = utils.prepare_training_data(X, Y, vector_valued=True)
+    Xp, n_obs = engine.pad_rows(X_np, 128)
+    Yp, _ = engine.pad_rows(Y_np, 128)
+    T = Y_np.shape[1]
+    rng = np.random.RandomState(4)
+    ls = 3.0 + 3.0 * rng.rand(T, 1, 2)
+    mask = np.zeros(len(Xp))
+    mask[:n_obs] = 1.0
+    t = lambda a: torch.as_tensor(a, dtype=dtype,  # noqa: E731
+                                  device="cuda").contiguous()
+    Xs = t(Xp[None] / ls)
+    Xt = t(utils.prepare_test_data(Xf)[:MULTI_CHUNK][None] / ls)
+    Xt[:, :512] = Xs[:, :512]
+    return {"Xs": Xs, "Xt": Xt, "Xr": t(Xp), "mask": t(mask),
+            "y": t(Yp.T - np.nanmean(Y_np, axis=0)[:, None]) * t(mask),
+            "v": t(0.05 + 0.1 * rng.rand(T)),
+            "nj": t(1e-4 + 1e-3 * (1.0 + rng.rand(T))), "n_obs": n_obs}
+
+
+def _per_task_err(out, ref, scales):
+    """Largest absolute and normalised error over the tasks, each task
+    against its own scale."""
+    errs = [_norm_err(o, r, s) for o, r, s in zip(out, ref, scales)]
+    return max(e for e, _ in errs), max(ne for _, ne in errs)
+
+
+def _batched_cases(eels64, dname, timed):
+    """K1, K2 and K3 with their task axis at the eels64 shapes against
+    their plain versions (each task at its own scale); timed in float32.
+    Returns {kernel: record}."""
+    import torch
+    from gpim_tpu_torch.ops import gram_kernels as gk
+    from gpim_tpu_torch.ops.linalg import safe_cholesky
+    from gpim_tpu_torch.ops.tri import tri_inverse
+    dtype = getattr(torch, dname)
+    b = _eels64_kernel_inputs(eels64, dtype)
+    Xs, Xt, mask, v, nj = b["Xs"], b["Xt"], b["mask"], b["v"], b["nj"]
+    T, n, d = Xs.shape
+    log("[kernels] eels64 batched shapes: T = %d tasks, n = %d (%d observed),"
+        " predict chunk %d, d = %d, %s" % (T, n, b["n_obs"], Xt.shape[1], d,
+                                           dname))
+    out = {}
+
+    # K1 on one predict chunk: (T, 2048, d) x (T, n, d)
+    D = gk.sqdist(Xt, Xs)
+    ref = gk.sqdist_plain(Xt.double(), Xs.double())
+    torch.cuda.synchronize()
+    j = torch.arange(512, device="cuda")
+    if not bool((D[:, j, j] == 0).all()):
+        raise AssertionError("batched sqdist: coincident points are not 0")
+    err, nerr = _per_task_err(D, ref, ref.abs().amax(dim=(1, 2)))
+    del D, ref
+    _check("sqdist", dname, err, nerr)
+    out["sqdist"] = {"err": err, "shape": [T, Xt.shape[1], n, d]}
+
+    # K2 on the training system
+    Kt, A = gk.masked_system(Xs, mask, v, nj, kernel="RBF")
+    Kr, Ar = gk.masked_system_plain(Xs.double(), mask.double(), v.double(),
+                                    nj.double(), kernel="RBF")
+    torch.cuda.synchronize()
+    if not bool((torch.diagonal(Kt, dim1=-2, dim2=-1) == v[:, None]).all()):
+        raise AssertionError("batched masked_system: diagonal is not v")
+    ek, nk = _per_task_err(Kt, Kr, v.double())
+    ea, na = _per_task_err(A, Ar, v.double() + 1.0)
+    del Kr, Ar
+    _check("masked_system", dname, max(ek, ea), max(nk, na))
+    out["masked_system"] = {"err": max(ek, ea), "shape": [T, n, d]}
+
+    # K3 on the real system's inverse
+    L, info = safe_cholesky(A)
+    if int(info.abs().max().item()) != 0:
+        raise AssertionError("Cholesky of the eels64 K3 test system failed")
+    del A
+    V = tri_inverse(L)
+    del L
+    alpha = (V.mT @ (V @ b["y"][..., None]))[..., 0]
+    Ainv = V.mT @ V
+    del V
+    ops = (Ainv, Kt, alpha, mask, b["Xr"])
+    got = gk.rbf_bwd_reductions(*ops)
+    Xr64, m64 = b["Xr"].double(), mask.double()
+    errs = []
+    for t in range(T):
+        a64, k64, al64 = Ainv[t].double(), Kt[t].double(), alpha[t].double()
+        ref = gk.rbf_bwd_reductions_plain(a64, k64, al64, m64, Xr64)
+        absW = ((a64 - al64[:, None] * al64[None, :]).abs()
+                * (m64[:, None] * m64[None, :]) * k64.abs())
+        row = absW.sum(dim=1).max()
+        scales = (absW.sum(), row, row * Xr64.abs().max(),
+                  (torch.diagonal(a64) * m64 ** 2).abs().sum())
+        errs += [_norm_err(g_[t], r_, s_)
+                 for g_, r_, s_ in zip(got, ref, scales)]
+    err, nerr = max(e for e, _ in errs), max(ne for _, ne in errs)
+    _check("rbf_bwd_reductions", dname, err, nerr)
+    out["rbf_bwd_reductions"] = {"err": err, "shape": [T, n, d]}
+
+    if timed:
+        reps = MULTI_TIMING_REPS
+        r = out["sqdist"]
+        r["ms"] = _time_ms(lambda: gk.sqdist(Xt, Xs), reps)
+        r["plain_ms"] = _time_ms(lambda: gk.sqdist_plain(Xt, Xs), reps)
+        r["library_ms"] = _time_ms(lambda: torch.cdist(Xt, Xs), reps)
+        r["bound"] = bound("sqdist", Xt.shape[1], d, m=n, batch=T)
+        r = out["masked_system"]
+        r["ms"] = _time_ms(
+            lambda: gk.masked_system(Xs, mask, v, nj, kernel="RBF"), reps)
+        r["plain_ms"] = _time_ms(
+            lambda: gk.masked_system_plain(Xs, mask, v, nj, kernel="RBF"),
+            reps)
+        r["library_ms"] = None
+        r["bound"] = bound("masked_system", n, d, batch=T)
+        r = out["rbf_bwd_reductions"]
+        r["ms"] = _time_ms(lambda: gk.rbf_bwd_reductions(*ops), reps)
+        r["plain_ms"] = _time_ms(
+            lambda: gk.rbf_bwd_reductions_plain(*ops), reps)
+        r["library_ms"] = None
+        r["bound"] = bound("rbf_bwd_reductions", n, d, batch=T)
+    del ops, Ainv, Kt, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_kernels(R, X, X_full, vfe, eels64):
     """Each kernel against its plain version at the flagship's shapes and
     at the BO paths', and K1 also at the VFE path's."""
     import torch
@@ -557,8 +775,12 @@ def phase_kernels(R, X, X_full, vfe):
                                njt, dname)
         rec["rbf_bwd_reductions"]["bo_shapes"] = {
             "bo25": {"err": err, "shape": shape}}
+        del bo
+        # every kernel with its task axis at the multi-output eels64 shapes
+        for name, r in _batched_cases(eels64, dname, timed).items():
+            rec[name]["batched_shapes"] = {"eels64": r}
         report[dname] = rec
-    def show(name, r):
+    def show(name, r, reps=TIMING_REPS):
         log("[kernels] %-19s float32 kernel %.4f ms%s, plain %.4f ms, "
             "library %s ms, bound %.4f ms (%s), %.0f%% of bound (%s of %d)"
             % (name, r["ms"], "" if "loop_ms" not in r else
@@ -566,11 +788,14 @@ def phase_kernels(R, X, X_full, vfe):
                "none" if r["library_ms"] is None else
                "%.4f" % r["library_ms"], r["bound"][0], r["bound"][1],
                100 * r["bound"][0] / r["ms"],
-               "graph" if "loop_ms" in r else "warm loop", TIMING_REPS))
+               "graph" if "loop_ms" in r else "warm loop", reps))
     for name, r in report["float32"].items():
         show(name, r)
     for label, r in report["float32"]["sqdist"]["vfe_shapes"].items():
         show("sqdist VFE " + label, r)
+    for name, r in report["float32"].items():
+        show(name + " eels64", r["batched_shapes"]["eels64"],
+             MULTI_TIMING_REPS)
     return report["float32"]
 
 
@@ -1098,6 +1323,228 @@ def phase_bo(R, X, X_full):
     return paths, bo25, spiral["device step"]
 
 
+# ---------------------------------------------------------------------------
+# multi-output GP
+# ---------------------------------------------------------------------------
+
+def _multi_expected(model, n_test):
+    """Kernel launches a vreconstructor run implies. Independent: K2 once
+    an Adam step (all channels in one launch), K3 too for RBF, K1 once an
+    Adam step for Matern52 (its backward's distances); correlated: K1 once
+    an Adam step (Kx). Prediction: K1 once for the training Gram and once
+    a test chunk."""
+    steps = int(model.iterations)
+    n_chunks = -(-n_test // min(MULTI_CHUNK, -(-n_test // 128) * 128))
+    predict = 1 + n_chunks
+    if not model.independent:
+        return {"sqdist": steps + predict, "masked_system": 0,
+                "rbf_bwd_reductions": 0}
+    rbf = model.kernel_type == "RBF"
+    return {"sqdist": predict + (0 if rbf else steps),
+            "masked_system": steps, "rbf_bwd_reductions": steps if rbf else 0}
+
+
+def _run_multi(label, data, **kwargs):
+    """One vreconstructor run (train and predict), built without use_gpu
+    unless ``kwargs`` say otherwise; checks its launches, its shapes, NaNs
+    and that every model tensor is on its device. Returns (model, mean,
+    sd, hyperparams, record)."""
+    import torch
+    from gpim_tpu_torch import vreconstructor
+    X, Y, Xt = data[:3]
+    kw = dict(MULTI, **kwargs)
+    model = vreconstructor(X, Y, Xt, verbose=0, **kw)
+    on_card = model.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    mean, sd, hp = model.run()
+    total = time.perf_counter() - t0
+    launches = _read_launches()
+    ph = model.timer.phases
+    n_test = int(np.prod(Xt.shape[1:]))
+    rec = {"train_s": ph["train"]["first_s"],
+           "predict_s": ph["predict"]["first_s"], "total_s": total,
+           "step_ms": 1e3 * ph["train"]["first_s"] / kw["iterations"],
+           "launches": launches, "n_train": int(model._Xd.shape[0]),
+           "tasks": model.num_tasks, "dtype": str(model.dtype)}
+    log("[multi] %-24s train %.3f s (%.2f ms a step), predict %.3f s, total "
+        "%.3f s, n = %d, T = %d, %s, %s, launches %s, final lengthscale "
+        "range [%.3f, %.3f], loss %.6g" % (
+            label, rec["train_s"], rec["step_ms"], rec["predict_s"], total,
+            rec["n_train"], rec["tasks"], rec["dtype"],
+            "independent" if model.independent else "correlated", launches,
+            hp["lengthscale"][-1].min(), hp["lengthscale"][-1].max(),
+            model.losses[-1]))
+    if mean.shape != Xt.shape[1:] + (model.num_tasks,) \
+            or sd.shape != mean.shape:
+        raise AssertionError("%s: prediction has the wrong shape" % label)
+    if np.isnan(mean).any() or np.isnan(sd).any():
+        raise AssertionError("%s: prediction has NaNs" % label)
+    if on_card:
+        expected = _multi_expected(model, n_test)
+        if launches != expected:
+            raise AssertionError("%s: launches %s, the code implies %s"
+                                 % (label, launches, expected))
+        tensors = (list(model.u.values()) + list(model._bounds().values())
+                   + [model._Xd, model._Yd]
+                   + ([model._maskd] if model.independent else []))
+        if not all(t.is_cuda for t in tensors):
+            raise AssertionError("%s: a tensor of a vreconstructor built "
+                                 "without use_gpu is not on the card" % label)
+    return model, mean, sd, hp, rec
+
+
+def _time_linalg(A):
+    """The batched dense linear algebra of one eels64 Adam step, each way
+    it could run, in device ms (CUDA events around 3 warm calls): the
+    batched Cholesky against a loop over the tasks, the triangular inverse
+    (one batched solve against I; a loop; ``cholesky_inverse``, which gives
+    A^-1 without L^-1), and A^-1 = V^T V."""
+    import torch
+    from gpim_tpu_torch.ops.tri import tri_inverse
+
+    def ms(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    L = torch.linalg.cholesky_ex(A)[0]
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    out = {
+        "cholesky_batched": ms(lambda: torch.linalg.cholesky_ex(A)),
+        "cholesky_loop": ms(lambda: [torch.linalg.cholesky_ex(a) for a in A]),
+        "tri_inverse_batched": ms(lambda: tri_inverse(L)),
+        "tri_inverse_loop": ms(lambda: [torch.linalg.solve_triangular(
+            li, eye, upper=False) for li in L]),
+        "cholesky_inverse": ms(lambda: torch.cholesky_inverse(L)),
+    }
+    V = tri_inverse(L)
+    out["VtV_gemm"] = ms(lambda: V.mT @ V)
+    log("[multi] eels64 dense linear algebra, device ms a call at %s "
+        "float32: %s" % (list(A.shape), json.dumps(
+            {k: round(v, 4) for k, v in out.items()})))
+    return out
+
+
+def phase_multi(eels6, eels64):
+    """The suite's eels6 and eels64 rows cold then warm (the rmse gate of
+    eels64), eels6 correlated, eels6 float32 against float64, small
+    problems card against CPU in both modes, and the eels64 dense linear
+    algebra timed. Returns the warm runs' launches by path."""
+    import torch
+    from gpim_tpu_torch import dtypes
+    from gpim_tpu_torch.gpreg import multi
+    paths, recs = {}, {}
+    _run_multi("eels6 f32 cold", eels6)
+    m6, mean6, sd6, hp6, recs["eels6"] = _run_multi("eels6 f32 warm", eels6)
+    paths["eels6"] = recs["eels6"]["launches"]
+
+    _run_multi("eels64 f32 cold", eels64)
+    torch.cuda.reset_peak_memory_stats()
+    m64, mean, _, _, recs["eels64"] = _run_multi("eels64 f32 warm", eels64)
+    paths["eels64"] = recs["eels64"]["launches"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # benchmarks/suite.py:510-514
+    Y, fields = eels64[1], eels64[3]
+    obs = ~np.isnan(Y)
+    rmse = float(np.sqrt(np.mean((mean[obs] - fields[obs]) ** 2)))
+    gate = 0.5 * float(np.nanstd(Y))
+    recs["eels64"].update(rmse_vs_truth=rmse, peak_gib=peak,
+                          channel_iters_per_s=64 * MULTI["iterations"]
+                          / recs["eels64"]["total_s"])
+    log("[multi] eels64 rmse_vs_truth %.5f (gate < %.5f), %.1f channel "
+        "iterations/s, peak device memory %.2f GiB" % (
+            rmse, gate, recs["eels64"]["channel_iters_per_s"], peak))
+    if not rmse < gate:
+        raise AssertionError("eels64 rmse %.4f >= %.4f" % (rmse, gate))
+
+    # the batched Cholesky and inverse of one eels64 step, timed
+    p = multi._constrain_task(m64.u, m64._bounds())
+    from gpim_tpu_torch.kernels.functional import rbf
+    A = multi._masked_gram(rbf, p, m64._Xd, m64._maskd, m64.jitter)
+    del m64, p
+    recs["eels64_linalg_ms"] = _time_linalg(A)
+    del A
+    torch.cuda.empty_cache()
+
+    _run_multi("eels6_correlated f32 cold", eels6, independent=False)
+    _, cmean, csd, _, recs["eels6_correlated"] = _run_multi(
+        "eels6_correlated f32 warm", eels6, independent=False)
+    paths["eels6_correlated"] = recs["eels6_correlated"]["launches"]
+
+    # eels6 in float64 at the float32 jitter against the float32 run
+    _, mean64, sd64, h64, recs["eels6_f64"] = _run_multi(
+        "eels6 f64", eels6, precision="double",
+        jitter=dtypes.default_jitter(torch.float32))
+    diffs = {
+        "mean_atol": float(np.abs(mean6 - mean64).max()),
+        "sd_atol": float(np.abs(sd6 - sd64).max()),
+        "ls_rtol": float(np.max(np.abs(hp6["lengthscale"][-1]
+                                       - h64["lengthscale"][-1])
+                                / np.abs(h64["lengthscale"][-1]))),
+        "noise_rtol": float(np.max(np.abs(hp6["noise"][-1]
+                                          - h64["noise"][-1])
+                                   / np.abs(h64["noise"][-1]))),
+    }
+    log("[cross-check] eels6 f32 vs f64: %s (limits %s)"
+        % (json.dumps(diffs), json.dumps(MULTI_CROSS_TOL)))
+    for k, lim in MULTI_CROSS_TOL.items():
+        if not diffs[k] <= lim:
+            raise AssertionError("eels6 f32 vs f64 %s %.3e > %.0e"
+                                 % (k, diffs[k], lim))
+
+    # small problems in float64, both modes: the card against the CPU
+    small = small_vector_data()
+    for kernel, independent in (("RBF", True), ("Matern52", True),
+                                ("RBF", False)):
+        out = {}
+        for use_gpu in (True, False):
+            kw = dict(kernel=kernel, independent=independent, iterations=20,
+                      precision="double")
+            if not use_gpu:
+                kw["use_gpu"] = False
+            out[use_gpu] = _run_multi(
+                "small %s %s %s" % (kernel, "ind" if independent else "corr",
+                                    "card" if use_gpu else "cpu"),
+                small, **kw)
+        worst = max(float(np.max(np.abs(g - c)) / np.max(np.abs(c)))
+                    for g, c in zip(
+                        out[True][1:3] + (out[True][3]["lengthscale"],),
+                        out[False][1:3] + (out[False][3]["lengthscale"],)))
+        log("[cross-check] small 12x12x3 %s %s, CUDA vs CPU (f64): max diff "
+            "/ max value %.3e (limit %.0e)" % (
+                kernel, "independent" if independent else "correlated",
+                worst, SMALL_RTOL))
+        if not worst <= SMALL_RTOL:
+            raise AssertionError("CUDA and CPU multi-output paths disagree")
+    log("[multi] warm records: " + json.dumps(recs))
+    return paths
+
+
+def phase_multi_profile(eels6, eels64):
+    """MULTI_PROFILE_STEPS warm training steps of eels6 and eels64 (all
+    channels at once) and of eels6 correlated: device ms by kernel, idle
+    share, host ops."""
+    from gpim_tpu_torch import vreconstructor
+    for label, data, kw in (("eels6", eels6, {}), ("eels64", eels64, {}),
+                            ("eels6_correlated", eels6,
+                             {"independent": False})):
+        model = vreconstructor(*data[:3], verbose=0, **dict(MULTI, **kw))
+        model.train(iterations=1)
+        model.iterations = MULTI_PROFILE_STEPS
+        _report_profile(label, "warm f32 training steps", MULTI_PROFILE_STEPS,
+                        _profiled(model.train), host_ops=8)
+
+
 def kernel_records(kreport, paths):
     """The kernels line; ``paths`` maps each main path to its warm run's
     launch counts, and ``launches`` is their sum."""
@@ -1121,6 +1568,13 @@ def kernel_records(kreport, paths):
                         "of this kernel's output" if name == "sqdist"
                         else None),
         })
+        out[-1]["batched_shapes"] = {
+            label: {"shape": v["shape"], "max_abs_err": v["err"],
+                    "ms": v["ms"], "plain_ms": v["plain_ms"],
+                    "bound_ms": v["bound"][0], "bound_by": v["bound"][1],
+                    "bound_share": v["bound"][0] / v["ms"],
+                    "library_ms": v["library_ms"]}
+            for label, v in r["batched_shapes"].items()}
         out[-1]["bo_shapes"] = {
             label: {"shape": v["shape"], "max_abs_err": v["err"]}
             for label, v in r["bo_shapes"].items()}
@@ -1141,17 +1595,21 @@ def main():
     phase_build()
     R, X, X_full = flagship_data()
     vfe = vfe_data()
-    kreport = phase_kernels(R, X, X_full, vfe)
+    eels6, eels64 = eels6_data(), eels64_data()
+    kreport = phase_kernels(R, X, X_full, vfe, eels64)
     launches, f32 = phase_flagship(R, X, X_full)
     vfe_launches, vfe32 = phase_vfe(vfe)
     phase_cross_check(R, X, X_full, f32, vfe, vfe32)
     bo_paths, bo25, spiral_bo = phase_bo(R, X, X_full)
+    multi_paths = phase_multi(eels6, eels64)
     phase_profile("flagship", R, X, X_full, kernel="RBF")
     phase_profile("vfe", *vfe[:3], **VFE)
+    phase_multi_profile(eels6, eels64)
     phase_bo_profile("bo25_ei_explore", bo25)
     phase_bo_profile("spiral_bo", spiral_bo)
     print(json.dumps({"kernels": kernel_records(
-        kreport, {"flagship": launches, "vfe": vfe_launches, **bo_paths})}),
+        kreport, {"flagship": launches, "vfe": vfe_launches, **bo_paths,
+                  **multi_paths})}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,19 +15,26 @@ __all__ = ["params_from_numpy", "bounds_from_numpy"]
 
 
 def _to_tensors(arrays, device, dtype):
-    return {k: torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
+    return {k: torch.tensor(np.asarray(v), dtype=dtype, device=device)
             for k, v in arrays.items()}
 
 
 def params_from_numpy(u, device, dtype):
-    """Unconstrained parameters {'lengthscale', 'variance', 'noise'[,
-    'alpha'][, 'Xu']} as tensors of ``dtype`` on ``device``. 'Xu' holds a
-    sparse (VFE) model's (m, d) inducing points, so a ``gpim_tpu`` sparse
-    model is predicted by the port as it stands."""
+    """Unconstrained parameters as tensors of ``dtype`` on ``device``, for
+    every model of the port:
+
+    - ``reconstructor``: {'lengthscale', 'variance', 'noise'[, 'alpha'][,
+      'Xu']}; 'Xu' holds a sparse (VFE) model's (m, d) inducing points, so
+      a ``gpim_tpu`` sparse model is predicted by the port as it stands;
+    - ``vreconstructor``, independent: {'lengthscale' (T, d),
+      'outputscale', 'noise', 'mean' (T,)}; correlated: {'lengthscale'
+      (d,), 'noise' (), 'mean' (T,), 'F' (T, rank), 'task_var' (T,)}.
+    """
     return _to_tensors(u, device, dtype)
 
 
 def bounds_from_numpy(bounds, device, dtype):
-    """Bounds {'ls_lo', 'ls_hi', 'var_lo', 'var_hi'} as tensors of
-    ``dtype`` on ``device``."""
+    """Bounds {'ls_lo', 'ls_hi'[, 'var_lo', 'var_hi']} as tensors of
+    ``dtype`` on ``device`` (a ``vreconstructor`` has no variance
+    bounds)."""
     return _to_tensors(bounds, device, dtype)

@@ -6,6 +6,14 @@
 // K2 masked_system   Kt and the masked training system A, in one pass
 // K3 rbf_bwd         the reductions of the closed-form RBF MLL backward
 //
+// Each kernel takes a leading task axis (T independent problems in one
+// launch, the batch that gpim_tpu's vmap over output channels gives its
+// Pallas kernels) on its own grid axis: blockIdx.z for K1 and K2,
+// blockIdx.y for K3. Per-task operands advance by the task's stride; the
+// padding mask (K2, K3) and K3's unscaled X are shared by every task. An
+// unbatched call is T = 1. Offsets are int64: at T = 64 and n = 2048 one
+// (T, n, n) tensor holds 2.7e8 elements.
+//
 // Every kernel is an elementwise-plus-reduction pass with d <= 8 features,
 // so none has a tensor-core product to win: K1 and K2 are bound by the bytes
 // they write, K3 by the bytes it reads. The designs keep those accesses
@@ -158,6 +166,13 @@ __device__ __forceinline__ T sq_dist(const T* a, const T (&b)[kMaxD], int d) {
 //
 // Distances are direct per-feature differences summed in feature order:
 // coincident points give exactly 0.
+//
+// Task axis: blockIdx.z picks the task. A and the output are read as
+// (T n) rows, so a tile's rows are the task's rows and its 16-byte shifts
+// are counted from the whole output's start; B starts m d elements past
+// the previous task's. Only one more index than an unbatched launch stays
+// live in the row loop (kernel parameters cost no registers, offset
+// pointers would).
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 __device__ __forceinline__ T sq_dist_d(const T (&a)[D], const T (&b)[D]) {
@@ -209,17 +224,21 @@ __global__ void __launch_bounds__(kDistWarps * 32)
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t row0 = static_cast<int64_t>(blockIdx.y) * kDistRows;
+  // the tile's first row among the (T n) rows of A and the output
+  const int64_t grow0 = static_cast<int64_t>(blockIdx.z) * n + row0;
+  const int rows = static_cast<int>(n - row0 < kDistRows ? n - row0
+                                                         : kDistRows);
   const int64_t c0 = (static_cast<int64_t>(blockIdx.x) * 32 + lane) * V;
   for (int e = threadIdx.x; e < kDistRows * D; e += blockDim.x) {
-    const int64_t g = row0 + e / D;
-    a_s[e / D][e % D] = g < n ? A[g * D + e % D] : T(0);
+    a_s[e / D][e % D] = e / D < rows ? A[(grow0 + e / D) * D + e % D] : T(0);
   }
+  const T* __restrict__ Bt = B + static_cast<int64_t>(blockIdx.z) * m * D;
   T b[P][D];
 #pragma unroll
   for (int q = 0; q < P; ++q) {
 #pragma unroll
     for (int k = 0; k < D; ++k) {
-      b[q][k] = c0 + q < m ? B[(c0 + q) * D + k] : T(0);
+      b[q][k] = c0 + q < m ? Bt[(c0 + q) * D + k] : T(0);
     }
   }
   __syncthreads();
@@ -227,15 +246,15 @@ __global__ void __launch_bounds__(kDistWarps * 32)
 #pragma unroll
   for (int i = 0; i < kDistRows / kDistWarps; ++i) {
     const int r = warp + i * kDistWarps;
-    const int64_t row = row0 + r;
-    if (row >= n) break;
+    if (r >= rows) break;
+    const int64_t g = grow0 + r;  // the output row
     T a[D];
 #pragma unroll
     for (int k = 0; k < D; ++k) a[k] = a_s[r][k];
-    T* __restrict__ out_row = out + row * m;
+    T* __restrict__ out_row = out + g * m;
     // warp-uniform: every lane of the warp works on this row
-    const int s = SHIFT ? static_cast<int>((V - (out_off + row * m) % V) % V)
-                        : 0;
+    const int s =
+        SHIFT ? static_cast<int>((V - (out_off + g * m) % V) % V) : 0;
     T v[V];
     dists_shifted<T, V, D, P>(a, b, s, v);
     const int64_t col = c0 + s;
@@ -271,7 +290,10 @@ __global__ void __launch_bounds__(kDistWarps * 32)
 // once per thread. The diagonal and the (I - diag m) term are decided per
 // element. V = 1 is the scalar instantiation of the same code: the
 // launcher takes it when n is not a multiple of kVec (rows then do not
-// start 16-byte aligned) or an output is misaligned.
+// start 16-byte aligned) or an output is misaligned. Task axis: blockIdx.z
+// picks the task, whose Xs, Kt and A start n d and n^2 elements past the
+// previous task's, with its own v, noise + jitter and alpha; the mask is
+// shared.
 // ---------------------------------------------------------------------------
 template <typename T, int KERNEL>
 __device__ __forceinline__ T kernel_value(T s, T v, T alpha) {
@@ -295,6 +317,10 @@ __global__ void __launch_bounds__(kSysWarps * 32)
                          T* __restrict__ A, int64_t n, int d) {
   __shared__ T x_s[kSysRows][kMaxD];
   __shared__ T m_s[kSysRows];
+  const int64_t task = blockIdx.z;
+  Xs += task * n * d;
+  Kt += task * n * n;
+  A += task * n * n;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t row0 = static_cast<int64_t>(blockIdx.y) * kSysRows;
@@ -311,9 +337,9 @@ __global__ void __launch_bounds__(kSysWarps * 32)
     load_point(Xs, col0 + e, n, d, b[e]);
     m_col[e] = col0 + e < n ? mask[col0 + e] : T(0);
   }
-  const T v = *variance;
-  const T nj = *noise_jitter;
-  const T alpha = KERNEL == kRationalQuadratic ? *rq_alpha : T(0);
+  const T v = variance[task];
+  const T nj = noise_jitter[task];
+  const T alpha = KERNEL == kRationalQuadratic ? rq_alpha[task] : T(0);
   __syncthreads();
   // With V > 1, n % V == 0: a thread's V columns are all in range or none.
   if (col0 >= n) return;
@@ -363,7 +389,15 @@ __global__ void __launch_bounds__(kSysWarps * 32)
 // resets the counter. The counter is the only atomic: every sum has a
 // fixed order, so the f32 result is the same in every run. V = 1 is the
 // scalar instantiation, taken for n not a multiple of kVec or a misaligned
-// operand.
+// operand. Task axis: blockIdx.y picks the task, whose Ainv, Kt, alpha, rw
+// and wx start n^2, n^2, n, n and n d elements past the previous task's;
+// mask and X are shared. Each task has its own finish counter and its own
+// slice of 2 gridDim.x partials, and its last block adds them in block
+// order, so the determinism holds per task. S1 of task t lands in sums[t],
+// its diagsum in sums[T + t]. The row pointers carry the task's offset;
+// the outputs' offsets are formed after the main loop, so that the loop
+// holds one more pointer (the task's alpha) than an unbatched launch
+// (kernel parameters cost no registers, offset pointers would).
 // ---------------------------------------------------------------------------
 template <typename T>
 __device__ __forceinline__ T warp_sum(T x) {
@@ -394,19 +428,22 @@ __global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks<T>)
   const int warp = threadIdx.x >> 5;
   const int64_t row0 =
       static_cast<int64_t>(blockIdx.x) * kBwdRows + warp * R;
+  const int64_t task_row0 = static_cast<int64_t>(blockIdx.y) * n;
+  const T* __restrict__ alpha_t = alpha + task_row0;
 
   // The warp's rows; one past n (odd n) repeats row0 and is not written.
+  // A row's offset in Ainv and Kt (the same layout) is one index: the loop
+  // holds R indices where R pointers a matrix would cost twice the
+  // registers.
   T a_row[R];
   T m_row[R];
-  const T* __restrict__ ainv_row[R];
-  const T* __restrict__ k_row[R];
+  int64_t roff[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int64_t row = row0 + r < n ? row0 + r : row0;
-    a_row[r] = row0 < n ? alpha[row] : T(0);
+    a_row[r] = row0 < n ? alpha_t[row] : T(0);
     m_row[r] = row0 < n ? mask[row] : T(0);
-    ainv_row[r] = Ainv + row * n;
-    k_row[r] = Kt + row * n;
+    roff[r] = (task_row0 + row) * n;
   }
   T acc_rw[R];
   T acc_wx[R][D];
@@ -426,14 +463,14 @@ __global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks<T>)
       T xv[V * D];
       T ai[R][V];
       T kk[R][V];
-      load_vec<T, V>(alpha + j0, al);
+      load_vec<T, V>(alpha_t + j0, al);
       load_vec<T, V>(mask + j0, mk);
 #pragma unroll
       for (int q = 0; q < D; ++q) load_vec<T, V>(X + j0 * D + q * V, xv + q * V);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        load_vec<T, V>(ainv_row[r] + j0, ai[r]);
-        load_vec<T, V>(k_row[r] + j0, kk[r]);
+        load_vec<T, V>(Ainv + roff[r] + j0, ai[r]);
+        load_vec<T, V>(Kt + roff[r] + j0, kk[r]);
       }
 #pragma unroll
       for (int e = 0; e < V; ++e) {
@@ -461,16 +498,20 @@ __global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks<T>)
       T rwv = T(0);
       T dgv = T(0);
       if (row < n) {
-        rw[row] = acc_rw[r];
+        const int64_t g = static_cast<int64_t>(blockIdx.y) * n + row;
+        rw[g] = acc_rw[r];
 #pragma unroll
-        for (int k = 0; k < D; ++k) wx[row * D + k] = acc_wx[r][k];
+        for (int k = 0; k < D; ++k) wx[g * D + k] = acc_wx[r][k];
         rwv = acc_rw[r];
-        dgv = Ainv[row * n + row] * m_row[r] * m_row[r];
+        dgv = Ainv[roff[r] + row] * m_row[r] * m_row[r];
       }
       rw_s[warp * R + r] = rwv;
       dg_s[warp * R + r] = dgv;
     }
   }
+  // this task's slice of the partials
+  T* __restrict__ part =
+      partials + 2 * static_cast<int64_t>(blockIdx.y) * gridDim.x;
   __syncthreads();
   if (threadIdx.x == 0) {
     T prw = T(0);
@@ -479,10 +520,10 @@ __global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks<T>)
       prw += rw_s[i];
       pdg += dg_s[i];
     }
-    partials[blockIdx.x] = prw;
-    partials[gridDim.x + blockIdx.x] = pdg;
+    part[blockIdx.x] = prw;
+    part[gridDim.x + blockIdx.x] = pdg;
     __threadfence();  // the sums reach L2 before the counter moves
-    last_s = atomicAdd(counter, 1u) == gridDim.x - 1;
+    last_s = atomicAdd(counter + blockIdx.y, 1u) == gridDim.x - 1;
   }
   __syncthreads();
   if (!last_s) return;
@@ -491,8 +532,8 @@ __global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks<T>)
   T sa = T(0);
   T sb = T(0);
   for (unsigned i = threadIdx.x; i < gridDim.x; i += blockDim.x) {
-    sa += __ldcg(partials + i);
-    sb += __ldcg(partials + gridDim.x + i);
+    sa += __ldcg(part + i);
+    sb += __ldcg(part + gridDim.x + i);
   }
   sa = warp_sum(sa);
   sb = warp_sum(sb);
@@ -508,22 +549,25 @@ __global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks<T>)
       sa += sum_s[0][w];
       sb += sum_s[1][w];
     }
-    sums[0] = sa;
-    sums[1] = sb;
-    *counter = 0u;  // ready for the next launch on this stream
+    sums[blockIdx.y] = sa;
+    sums[gridDim.y + blockIdx.y] = sb;
+    counter[blockIdx.y] = 0u;  // ready for the next launch on this stream
   }
 }
 
 // ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
+constexpr int kMaxTasks = 65535;  // grid.y / grid.z limit
+
 template <typename T, int D>
 void launch_sqdist_d(const T* A, const T* B, T* out, int64_t n, int64_t m,
-                     cudaStream_t s) {
+                     int tasks, cudaStream_t s) {
   constexpr int V = kVec<T>;
   const int64_t groups = (m + V - 1) / V;  // V-column groups per row
   const dim3 grid(static_cast<unsigned>((groups + 31) / 32),
-                  static_cast<unsigned>((n + kDistRows - 1) / kDistRows));
+                  static_cast<unsigned>((n + kDistRows - 1) / kDistRows),
+                  static_cast<unsigned>(tasks));
   const dim3 block(kDistWarps * 32);
   // the output's offset past a 16-byte boundary, in elements
   const int off = static_cast<int>(
@@ -537,12 +581,17 @@ void launch_sqdist_d(const T* A, const T* B, T* out, int64_t n, int64_t m,
 
 template <typename T>
 int launch_sqdist(const T* A, const T* B, T* out, int64_t n, int64_t m, int d,
-                  void* stream) {
-  if (n == 0 || m == 0) return static_cast<int>(cudaGetLastError());
+                  int tasks, void* stream) {
+  if (tasks < 0 || tasks > kMaxTasks) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0 || m == 0 || tasks == 0) {
+    return static_cast<int>(cudaGetLastError());
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define GPIM_SQDIST_CASE(D)                          \
-  case D:                                            \
-    launch_sqdist_d<T, D>(A, B, out, n, m, s);       \
+#define GPIM_SQDIST_CASE(D)                              \
+  case D:                                                \
+    launch_sqdist_d<T, D>(A, B, out, n, m, tasks, s);    \
     break;
   switch (d) {
     GPIM_SQDIST_CASE(1)
@@ -563,10 +612,11 @@ int launch_sqdist(const T* A, const T* B, T* out, int64_t n, int64_t m, int d,
 template <typename T, int V>
 int launch_masked_system_v(const T* Xs, const T* mask, const T* variance,
                            const T* noise_jitter, const T* rq_alpha, T* Kt,
-                           T* A, int64_t n, int d, int kernel,
+                           T* A, int64_t n, int d, int kernel, int tasks,
                            cudaStream_t s) {
   const dim3 grid(static_cast<unsigned>((n + 32 * V - 1) / (32 * V)),
-                  static_cast<unsigned>((n + kSysRows - 1) / kSysRows));
+                  static_cast<unsigned>((n + kSysRows - 1) / kSysRows),
+                  static_cast<unsigned>(tasks));
   const dim3 block(kSysWarps * 32);
   switch (kernel) {
     case kRBF:
@@ -590,42 +640,46 @@ int launch_masked_system_v(const T* Xs, const T* mask, const T* variance,
 template <typename T>
 int launch_masked_system(const T* Xs, const T* mask, const T* variance,
                          const T* noise_jitter, const T* rq_alpha, T* Kt,
-                         T* A, int64_t n, int d, int kernel, void* stream) {
-  if (kernel == kRationalQuadratic && rq_alpha == nullptr) {
+                         T* A, int64_t n, int d, int kernel, int tasks,
+                         void* stream) {
+  if ((kernel == kRationalQuadratic && rq_alpha == nullptr) || tasks < 0 ||
+      tasks > kMaxTasks) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (n == 0) return static_cast<int>(cudaGetLastError());
+  if (n == 0 || tasks == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n % kVec<T> == 0 && aligned16(Kt) && aligned16(A)) {
     return launch_masked_system_v<T, kVec<T>>(Xs, mask, variance,
                                               noise_jitter, rq_alpha, Kt, A,
-                                              n, d, kernel, s);
+                                              n, d, kernel, tasks, s);
   }
   return launch_masked_system_v<T, 1>(Xs, mask, variance, noise_jitter,
-                                      rq_alpha, Kt, A, n, d, kernel, s);
+                                      rq_alpha, Kt, A, n, d, kernel, tasks,
+                                      s);
 }
 
 template <typename T, int V, int D>
 void launch_rbf_bwd_vd(const T* Ainv, const T* Kt, const T* alpha,
                        const T* mask, const T* X, T* rw, T* wx, T* partials,
-                       unsigned int* counter, T* sums, int64_t n,
+                       unsigned int* counter, T* sums, int64_t n, int tasks,
                        cudaStream_t s) {
-  // at least one block, so n == 0 still writes zero sums
+  // at least one block a task, so n == 0 still writes zero sums
   const int64_t blocks = n > 0 ? (n + kBwdRows - 1) / kBwdRows : 1;
-  rbf_bwd_kernel<T, V, D><<<static_cast<unsigned>(blocks), kBwdWarps * 32, 0,
-                            s>>>(Ainv, Kt, alpha, mask, X, rw, wx, partials,
-                                 counter, sums, n);
+  const dim3 grid(static_cast<unsigned>(blocks),
+                  static_cast<unsigned>(tasks));
+  rbf_bwd_kernel<T, V, D><<<grid, kBwdWarps * 32, 0, s>>>(
+      Ainv, Kt, alpha, mask, X, rw, wx, partials, counter, sums, n);
 }
 
 template <typename T, int V>
 int launch_rbf_bwd_v(const T* Ainv, const T* Kt, const T* alpha,
                      const T* mask, const T* X, T* rw, T* wx, T* partials,
                      unsigned int* counter, T* sums, int64_t n, int d,
-                     cudaStream_t s) {
+                     int tasks, cudaStream_t s) {
 #define GPIM_BWD_CASE(D)                                                     \
   case D:                                                                    \
     launch_rbf_bwd_vd<T, V, D>(Ainv, Kt, alpha, mask, X, rw, wx, partials,   \
-                               counter, sums, n, s);                         \
+                               counter, sums, n, tasks, s);                  \
     break;
   switch (d) {
     GPIM_BWD_CASE(1)
@@ -647,15 +701,20 @@ template <typename T>
 int launch_rbf_bwd(const T* Ainv, const T* Kt, const T* alpha, const T* mask,
                    const T* X, T* rw, T* wx, T* partials,
                    unsigned int* counter, T* sums, int64_t n, int d,
-                   void* stream) {
+                   int tasks, void* stream) {
+  if (tasks < 0 || tasks > kMaxTasks) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (tasks == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n % kVec<T> == 0 && aligned16(Ainv) && aligned16(Kt) &&
       aligned16(alpha) && aligned16(mask) && aligned16(X)) {
     return launch_rbf_bwd_v<T, kVec<T>>(Ainv, Kt, alpha, mask, X, rw, wx,
-                                        partials, counter, sums, n, d, s);
+                                        partials, counter, sums, n, d, tasks,
+                                        s);
   }
   return launch_rbf_bwd_v<T, 1>(Ainv, Kt, alpha, mask, X, rw, wx, partials,
-                                counter, sums, n, d, s);
+                                counter, sums, n, d, tasks, s);
 }
 
 }  // namespace
@@ -666,52 +725,61 @@ const char* gpim_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// Every entry point takes T = tasks problems laid out one after another
+// (tasks = 1 for an unbatched call; at most 65535).
 int gpim_sqdist_f32(const float* A, const float* B, float* out, int64_t n,
-                    int64_t m, int d, void* stream) {
-  return launch_sqdist<float>(A, B, out, n, m, d, stream);
+                    int64_t m, int d, int tasks, void* stream) {
+  return launch_sqdist<float>(A, B, out, n, m, d, tasks, stream);
 }
 
 int gpim_sqdist_f64(const double* A, const double* B, double* out, int64_t n,
-                    int64_t m, int d, void* stream) {
-  return launch_sqdist<double>(A, B, out, n, m, d, stream);
+                    int64_t m, int d, int tasks, void* stream) {
+  return launch_sqdist<double>(A, B, out, n, m, d, tasks, stream);
 }
 
-// rq_alpha may be null unless kernel is RationalQuadratic.
+// variance, noise_jitter and rq_alpha hold one value a task; rq_alpha may be
+// null unless kernel is RationalQuadratic.
 int gpim_masked_system_f32(const float* Xs, const float* mask,
                            const float* variance, const float* noise_jitter,
                            const float* rq_alpha, float* Kt, float* A,
-                           int64_t n, int d, int kernel, void* stream) {
+                           int64_t n, int d, int kernel, int tasks,
+                           void* stream) {
   return launch_masked_system<float>(Xs, mask, variance, noise_jitter,
-                                     rq_alpha, Kt, A, n, d, kernel, stream);
+                                     rq_alpha, Kt, A, n, d, kernel, tasks,
+                                     stream);
 }
 
 int gpim_masked_system_f64(const double* Xs, const double* mask,
                            const double* variance, const double* noise_jitter,
                            const double* rq_alpha, double* Kt, double* A,
-                           int64_t n, int d, int kernel, void* stream) {
+                           int64_t n, int d, int kernel, int tasks,
+                           void* stream) {
   return launch_masked_system<double>(Xs, mask, variance, noise_jitter,
-                                      rq_alpha, Kt, A, n, d, kernel, stream);
+                                      rq_alpha, Kt, A, n, d, kernel, tasks,
+                                      stream);
 }
 
-// partials holds 2 values per block (at least 2 max(n, 1) is enough);
-// counter is one zeroed unsigned int per stream, left at zero again.
+// partials holds 2 values per block of each task (at least 2 max(n, 1) a
+// task is enough); counter is one zeroed unsigned int per task, left at
+// zero again; sums holds S1 of every task, then diagsum of every task.
 int gpim_rbf_bwd_reductions_f32(const float* Ainv, const float* Kt,
                                 const float* alpha, const float* mask,
                                 const float* X, float* rw, float* wx,
                                 float* partials, unsigned int* counter,
-                                float* sums, int64_t n, int d, void* stream) {
+                                float* sums, int64_t n, int d, int tasks,
+                                void* stream) {
   return launch_rbf_bwd<float>(Ainv, Kt, alpha, mask, X, rw, wx, partials,
-                               counter, sums, n, d, stream);
+                               counter, sums, n, d, tasks, stream);
 }
 
 int gpim_rbf_bwd_reductions_f64(const double* Ainv, const double* Kt,
                                 const double* alpha, const double* mask,
                                 const double* X, double* rw, double* wx,
                                 double* partials, unsigned int* counter,
-                                double* sums, int64_t n, int d,
+                                double* sums, int64_t n, int d, int tasks,
                                 void* stream) {
   return launch_rbf_bwd<double>(Ainv, Kt, alpha, mask, X, rw, wx, partials,
-                                counter, sums, n, d, stream);
+                                counter, sums, n, d, tasks, stream);
 }
 
 }  // extern "C"

@@ -11,9 +11,14 @@ the exact marginal likelihood and the sparse Titsias VFE bound.
 - The RBF / Matern52 / RationalQuadratic marginal likelihood has a
   closed-form backward (:class:`_NLLFast`); on CUDA its forward runs kernel
   K2 and its RBF backward kernel K3 (:mod:`gpim_tpu_torch.ops.gram_kernels`).
+- The masked system and :class:`_NLLFast` also take a leading task axis
+  (per-task hyperparameters and targets, a shared X and mask): T problems
+  whose kernels run as one launch each, the batch that ``gpim_tpu``'s
+  ``vmap`` over output channels gives (:mod:`gpim_tpu_torch.gpreg.multi`).
 - Training is a Python loop of ``torch.optim.Adam`` steps that never waits
-  for the device: losses, raw parameters and Cholesky status are recorded
-  into preallocated device tensors and read once after the loop.
+  for the device (:func:`adam_steps`, shared with the multi-output GP):
+  losses, raw parameters and Cholesky status are recorded into preallocated
+  device tensors and read once after the loop.
 - The sparse path is the Titsias variational free energy (VFE) bound with
   trainable inducing points ``Xu``; its n-wide core (:class:`_VFEWide`) has
   a closed-form backward. On CUDA its Gram matrices Kmm and Kmn, and the
@@ -93,17 +98,19 @@ def _record(p):
 # --------------------------------------------------------------------------
 
 def _masked_system(K, noise, mask, jitter):
-    """Replace padded rows/cols of (K + noise I) with identity rows."""
+    """Replace padded rows/cols of (K + noise I) with identity rows; ``K``
+    (..., n, n) with one noise per leading index."""
     mm = mask[:, None] * mask[None, :]
-    eye = torch.eye(K.shape[0], dtype=K.dtype, device=K.device)
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
     diag_fix = (1.0 - mask) * eye
-    return mm * (K + (noise + jitter) * eye) + diag_fix
+    return mm * (K + (noise + jitter)[..., None, None] * eye) + diag_fix
 
 
 def _nll_core(L, z, mask):
-    """0.5 |z|^2 + masked log det + n_eff/2 log 2 pi."""
-    return (0.5 * torch.dot(z, z)
-            + torch.sum(torch.log(torch.diagonal(L)) * mask)
+    """0.5 |z|^2 + masked log det + n_eff/2 log 2 pi, one per leading
+    index of ``L`` (..., n, n) and ``z`` (..., n)."""
+    return (0.5 * (z * z).sum(-1)
+            + (torch.log(torch.diagonal(L, dim1=-2, dim2=-1)) * mask).sum(-1)
             + 0.5 * mask.sum() * _LOG_2PI)
 
 
@@ -125,13 +132,16 @@ def exact_loss(u, X, y, mask, bounds, jitter, *, kernel):
 
 def _exact_nll_autodiff(p, X, y, mask, jitter, kernel):
     """Masked NLL differentiated by autograd through the Cholesky; returns
-    ``(nll, info)`` with the Cholesky status of :func:`safe_cholesky`."""
+    ``(nll, info)`` with the Cholesky status of :func:`safe_cholesky`.
+    With a task axis, ``p`` holds the kernel functions' batched layout
+    (lengthscale (T, 1, d), variance (T, 1, 1)), noise (T,) and ``y``
+    (T, n); nll and info are (T,)."""
     kfn = get_kernel_fn(kernel)
     A = _masked_system(kfn(p, X, X), p["noise"], mask, jitter)
     L, info = safe_cholesky(A)
     # quadratic form via one triangular solve: y^T A^-1 y = |L^-1 y|^2
-    z = torch.linalg.solve_triangular(L, (y * mask)[:, None],
-                                      upper=False)[:, 0]
+    z = torch.linalg.solve_triangular(L, (y * mask)[..., None],
+                                      upper=False)[..., 0]
     return _nll_core(L, z, mask), info
 
 
@@ -153,11 +163,19 @@ def _exact_nll_autodiff(p, X, y, mask, jitter, kernel):
 class _NLLFast(torch.autograd.Function):
     """Masked NLL of the constrained hyperparameters with the closed-form
     backward. Returns ``(nll, info)``; ``info`` is the Cholesky status,
-    non-differentiable."""
+    non-differentiable.
+
+    Unbatched: ``ls`` (d,) or (1,), ``variance``, ``noise`` (and the RQ
+    ``alpha``) 0-d, ``y`` (n,). With a leading task axis of T (the
+    independent multi-output GP): ``ls`` (T, d) or (T, 1), the scalars
+    (T,), ``y`` (T, n), while ``X`` (n, d) and ``mask`` (n,) are shared;
+    nll and info are then (T,), and K2, the Cholesky, the triangular inverse
+    and K3 each run once for all T tasks.
+    """
 
     @staticmethod
     def forward(ctx, kernel, ls, variance, noise, alpha, X, y, mask, jitter):
-        Xs = X / ls
+        Xs = X / ls[..., None, :]
         # one fused pass producing K and the masked system together (K2 on
         # CUDA); the backward recomputes s when the kernel needs it
         Kt, A = gram_kernels.masked_system(Xs, mask, variance, noise + jitter,
@@ -165,7 +183,7 @@ class _NLLFast(torch.autograd.Function):
         L, info = safe_cholesky(A)
         # explicit L^-1: z now, and both backward solves become gemms
         V = tri_inverse(L)
-        z = V @ (y * mask)
+        z = (V @ (y * mask)[..., None])[..., 0]
         ctx.kernel = kernel
         ctx.save_for_backward(ls, variance, alpha, X, mask, V, Kt, z)
         ctx.mark_non_differentiable(info)
@@ -175,42 +193,46 @@ class _NLLFast(torch.autograd.Function):
     def backward(ctx, g, _g_info):
         ls, v, a_rq, X, mask, V, Kt, z = ctx.saved_tensors
         kernel = ctx.kernel
-        alpha = V.T @ z                                   # A^-1 (y . m)
-        Ainv = V.T @ V
+        alpha = (V.mT @ z[..., None])[..., 0]             # A^-1 (y . m)
+        Ainv = V.mT @ V
         d_alpha = None
         if kernel == "RBF":
             # one pass over Ainv and Kt computes every matrix reduction (K3)
             s1, rw, WX, diagsum = gram_kernels.rbf_bwd_reductions(
                 Ainv, Kt, alpha, mask, X)
             dv = 0.5 * g * s1 / v
-            dn = 0.5 * g * (diagsum - torch.dot(alpha, alpha))
+            dn = 0.5 * g * (diagsum - (alpha * alpha).sum(-1))
         else:
+            mat = lambda t: t[..., None, None]  # noqa: E731  per-task scalar
             mm = mask[:, None] * mask[None, :]
-            base = (Ainv - alpha[:, None] * alpha[None, :]) * mm
-            dv = 0.5 * g * torch.sum(base * Kt) / v
-            dn = 0.5 * g * (torch.dot(torch.diagonal(Ainv), mask * mask)
-                            - torch.dot(alpha, alpha))
-            s = pairwise_sq_dist(X / ls, X / ls)     # K1 on CUDA
+            base = (Ainv - alpha[..., :, None] * alpha[..., None, :]) * mm
+            dv = 0.5 * g * (base * Kt).sum(dim=(-2, -1)) / v
+            dn = 0.5 * g * ((torch.diagonal(Ainv, dim1=-2, dim2=-1)
+                             * mask * mask).sum(-1)
+                            - (alpha * alpha).sum(-1))
+            Xs = X / ls[..., None, :]
+            s = pairwise_sq_dist(Xs, Xs)             # K1 on CUDA
             if kernel == "Matern52":
                 r = torch.sqrt(s + 1e-12)
-                G = (5.0 / 3.0) * v * (1.0 + _SQRT5 * r) * torch.exp(
+                G = (5.0 / 3.0) * mat(v) * (1.0 + _SQRT5 * r) * torch.exp(
                     -_SQRT5 * r)
             else:  # RationalQuadratic
-                u_ = 1.0 + s / (2.0 * a_rq)
-                G = v * u_ ** (-a_rq - 1.0)
-                d_alpha = 0.5 * g * torch.sum(
-                    base * Kt * (-torch.log(u_) + s / (2.0 * a_rq + s)))
+                u_ = 1.0 + s / (2.0 * mat(a_rq))
+                G = mat(v) * u_ ** (-mat(a_rq) - 1.0)
+                d_alpha = 0.5 * g * (
+                    base * Kt * (-torch.log(u_) + s / (2.0 * mat(a_rq) + s))
+                ).sum(dim=(-2, -1))
             W = base * G
-            rw = W.sum(dim=1)
+            rw = W.sum(dim=-1)
             WX = W @ X
-        per_dim = g * ((X * X * rw[:, None]).sum(dim=0)
-                       - (X * WX).sum(dim=0))
-        if ls.shape[0] == 1 and X.shape[1] > 1:
+        per_dim = g[..., None] * ((X * X * rw[..., :, None]).sum(dim=-2)
+                                  - (X * WX).sum(dim=-2))
+        if ls.shape[-1] == 1 and X.shape[1] > 1:
             # isotropic: one lengthscale scales every dim
-            dls = per_dim.sum()[None] / ls ** 3
+            dls = per_dim.sum(dim=-1, keepdim=True) / ls ** 3
         else:
             dls = per_dim / ls ** 3
-        dy = g * alpha if ctx.needs_input_grad[6] else None
+        dy = g[..., None] * alpha if ctx.needs_input_grad[6] else None
         # X and mask are never trained in the exact path; jitter is constant
         return None, dls, dv, dn, d_alpha, None, dy, None, None
 
@@ -299,7 +321,8 @@ class _VFEWide(torch.autograd.Function):
 
 def _check_cholesky(infos, what, factors=("",)):
     """Raise if any recorded Cholesky status is nonzero (one host sync).
-    ``infos`` is (steps, len(factors)) or flat, one status per factor."""
+    ``infos`` is (steps, len(factors)) or flat, one status per factor (per
+    task, for the multi-output GP)."""
     infos = infos.cpu().numpy().reshape(-1, len(factors))
     bad = np.argwhere(infos)
     if bad.size:
@@ -314,33 +337,30 @@ def _check_cholesky(infos, what, factors=("",)):
 _VFE_FACTORS = ("Kmm", "B")
 
 
-def train(u0, X, y, mask, bounds, lr, jitter, *, kernel, iterations,
-          sparse=False):
-    """Run ``iterations`` Adam steps on the exact MLL or, with ``sparse``,
-    the VFE bound (``u0`` then holds 'Xu'); returns (final_u, trajectory
-    dict).
+def adam_steps(loss_info, u0, lr, iterations, factors=("",)):
+    """Run ``iterations`` Adam steps on ``loss_info(u) -> (loss, info)``;
+    returns (final u, raw trajectory {key: (iterations, ...)}, losses).
 
-    The trajectory holds the post-update constrained hyperparameters of
-    every iteration (and the inducing points, when sparse) plus the
-    pre-update loss. Adam is ``torch.optim.Adam``, whose update
-    m_hat / (sqrt(v_hat) + 1e-8) is optax.adam's. Nothing in the loop reads
-    a device value: the Cholesky status of every step (of Kmm and B, when
-    sparse) is checked once at the end, and a failure raises
+    The trajectory holds the post-update unconstrained parameters of every
+    iteration, the losses the pre-update loss. Adam is
+    ``torch.optim.Adam``, whose update m_hat / (sqrt(v_hat) + 1e-8) is
+    optax.adam's. Nothing in the loop reads a device value: ``info``, the
+    Cholesky status of each of ``factors``, is recorded every step and
+    checked once at the end, and a failure raises
     ``torch.linalg.LinAlgError``.
     """
-    loss_info = _vfe_loss_info if sparse else _exact_loss_info
-    factors = _VFE_FACTORS if sparse else ("",)
     u = {k: v.detach().clone().requires_grad_(True) for k, v in u0.items()}
     opt = torch.optim.Adam(list(u.values()), lr=lr)
-    dev = X.device
-    losses = torch.empty((iterations,), dtype=X.dtype, device=dev)
+    first = next(iter(u.values()))
+    dev = first.device
+    losses = torch.empty((iterations,), dtype=first.dtype, device=dev)
     infos = torch.zeros((iterations, len(factors)), dtype=torch.int32,
                         device=dev)
     u_traj = {k: torch.empty((iterations,) + tuple(v.shape), dtype=v.dtype,
                              device=dev) for k, v in u.items()}
     for i in range(iterations):
         opt.zero_grad(set_to_none=True)
-        loss, info = loss_info(u, X, y, mask, bounds, jitter, kernel)
+        loss, info = loss_info(u)
         loss.backward()
         opt.step()
         with torch.no_grad():
@@ -349,11 +369,29 @@ def train(u0, X, y, mask, bounds, lr, jitter, *, kernel, iterations,
             for k, v in u.items():
                 u_traj[k][i] = v
     _check_cholesky(infos, "train", factors)
+    return {k: v.detach() for k, v in u.items()}, u_traj, losses
+
+
+def train(u0, X, y, mask, bounds, lr, jitter, *, kernel, iterations,
+          sparse=False):
+    """Run ``iterations`` Adam steps (:func:`adam_steps`) on the exact MLL
+    or, with ``sparse``, the VFE bound (``u0`` then holds 'Xu'); returns
+    (final_u, trajectory dict).
+
+    The trajectory holds the post-update constrained hyperparameters of
+    every iteration (and the inducing points, when sparse) plus the
+    pre-update loss. The Cholesky status of every step (of Kmm and B, when
+    sparse) is checked once at the end.
+    """
+    loss_info = _vfe_loss_info if sparse else _exact_loss_info
+    u, u_traj, losses = adam_steps(
+        lambda uu: loss_info(uu, X, y, mask, bounds, jitter, kernel), u0, lr,
+        iterations, _VFE_FACTORS if sparse else ("",))
     with torch.no_grad():
         # constrain the raw trajectory in one batched pass
         traj = _record(constrain(u_traj, bounds))
     traj["loss"] = losses
-    return {k: v.detach() for k, v in u.items()}, traj
+    return u, traj
 
 
 # --------------------------------------------------------------------------

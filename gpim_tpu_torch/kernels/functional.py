@@ -3,8 +3,12 @@ Stationary covariance functions ``k(params, X1, X2)`` on tensors
 (counterpart of ``gpim_tpu/kernels/functional.py``).
 
 ``params`` holds *constrained* values: 'lengthscale' (d,) or (1,),
-'variance' (), and 'alpha' () for RationalQuadratic. The spectral mixture
-kernel comes with the structured-kernel slice of the port.
+'variance' (), and 'alpha' () for RationalQuadratic. With a leading task
+axis (the multi-output GP's per-channel hyperparameters, which
+``gpim_tpu`` vmaps), 'lengthscale' is (T, 1, d) or (T, 1, 1) and
+'variance' (T, 1, 1): the inputs scale to (T, n, d), the Gram matrix is
+(T, n, m) and :func:`kernel_diag` (T, n). The spectral mixture kernel comes
+with the structured-kernel slice of the port.
 """
 
 import math
@@ -66,6 +70,9 @@ def get_kernel_fn(kernel_type):
 
 
 def kernel_diag(kernel_type, params, X):
-    """diag(k(X, X)) without forming the Gram matrix."""
+    """diag(k(X, X)) without forming the Gram matrix: (n,), or (T, n) for a
+    (T, 1, 1) variance."""
     get_kernel_fn(kernel_type)
-    return params["variance"].expand(X.shape[0])
+    v = params["variance"]
+    lead = v.shape[:-2] if v.dim() >= 2 else ()
+    return v.reshape(lead + (1,)).expand(lead + (X.shape[-2],))

@@ -15,25 +15,29 @@ __all__ = ["pairwise_sq_dist", "pairwise_dist"]
 
 
 def pairwise_sq_dist(X1, X2):
-    """Pairwise squared Euclidean distances between rows of X1 and X2.
+    """Pairwise squared Euclidean distances between rows of X1 and X2:
+    (n, d) x (m, d) -> (n, m), or task by task with a leading task axis,
+    (T, n, d) x (T, m, d) -> (T, n, m).
 
     On the CPU: the |a|^2 + |b|^2 - 2ab expansion with mean-centering
     (grid coordinates can be O(100) while relevant distances are O(1)),
     and distances below the expansion's round-off floor snapped to exactly
     zero, so coincident points give d2 = 0 and k(x, x) = v
-    (gpim_tpu/ops/gram.py:33-50).
+    (gpim_tpu/ops/gram.py:33-50). Each task is centred by its own mean and
+    snapped at its own floor, as ``vmap`` does in the JAX package: every
+    reduction runs over the point axis only.
     """
     if X1.is_cuda:
         return gram_kernels.sqdist(X1, X2)
-    center = X1.mean(dim=0, keepdim=True)
+    center = X1.mean(dim=-2, keepdim=True)
     a = X1 - center
     b = X2 - center
     aa = (a * a).sum(dim=-1)
     bb = (b * b).sum(dim=-1)
-    d2 = aa[:, None] + bb[None, :] - 2.0 * (a @ b.T)
+    d2 = aa[..., :, None] + bb[..., None, :] - 2.0 * (a @ b.mT)
     eps = torch.finfo(d2.dtype).eps
-    floor = 8.0 * eps * (aa.max() + bb.max() + 1.0)
-    d2 = torch.where(d2 < floor, torch.zeros_like(d2), d2)
+    floor = 8.0 * eps * (aa.amax(dim=-1) + bb.amax(dim=-1) + 1.0)
+    d2 = torch.where(d2 < floor[..., None, None], torch.zeros_like(d2), d2)
     return d2.clamp_min(0.0)
 
 

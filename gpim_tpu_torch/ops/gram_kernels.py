@@ -10,13 +10,20 @@ fallback from CUDA to the plain version. The kernels are templated on
 float32 and float64, so every CUDA call goes through a kernel whatever the
 precision.
 
+Every wrapper and plain version takes an optional leading task axis: T
+independent problems in one call, the batch that ``gpim_tpu``'s ``vmap``
+over output channels gives its Pallas kernels (``gpim_tpu/gpreg/multi.py``).
+Per-task operands carry it; the padding mask, and K3's unscaled X, are
+shared. On CUDA the T problems are one launch, and an unbatched call is the
+same kernel at T = 1.
+
 Each wrapper counts its launches in a plain int attribute
 (``sqdist.launches``, ``masked_system.launches``,
 ``rbf_bwd_reductions.launches``), incremented where the kernel is launched
 and nowhere else, so a run can show that its main path went through the
-kernels. Wrappers check device, dtype, shape and contiguity, allocate their
-outputs with ``torch.empty``, launch on the current stream and never
-synchronise.
+kernels; a batched call is one launch. Wrappers check device, dtype, shape
+and contiguity, allocate their outputs with ``torch.empty``, launch on the
+current stream and never synchronise.
 """
 
 import ctypes
@@ -36,29 +43,47 @@ __all__ = [
 MAX_D = 8                    # feature count the CUDA kernels take
 KERNEL_IDS = {"RBF": 0, "Matern52": 1, "RationalQuadratic": 2}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-# grid.y limits: K1 tiles have 32 rows, K2 tiles 64 (csrc/gram_kernels.cu)
+# grid.y limits: K1 tiles have 32 rows, K2 tiles 64 (csrc/gram_kernels.cu);
+# the task axis is grid.z (K1, K2) or grid.y (K3)
 _MAX_SQDIST_ROWS = 65535 * 32
 _MAX_SYSTEM_ROWS = 65535 * 64
+_MAX_TASKS = 65535
 _SQRT5 = math.sqrt(5.0)
 
 
-def min_traffic(name, n, d, m=None, itemsize=4):
+def min_traffic(name, n, d, m=None, itemsize=4, batch=1):
     """(bytes read, bytes written, operations) of one call of kernel
     ``name`` at these shapes: each input read once and each output written
     once, whatever the kernel reads again; operations per element as the
     RBF form of its arithmetic does them, an exp counted as one. ``m`` is
-    K1's column count."""
+    K1's column count, ``batch`` the number of tasks; the operands that the
+    tasks share (the mask, K3's X) count once."""
+    T = batch
     if name == "sqdist":
-        return (n * d + m * d) * itemsize, n * m * itemsize, 3 * d * n * m
+        return (T * (n * d + m * d) * itemsize, T * n * m * itemsize,
+                T * 3 * d * n * m)
     if name == "masked_system":
-        # Xs, mask, 3 scalars -> Kt, A
-        return ((n * d + n + 3) * itemsize, 2 * n * n * itemsize,
-                (3 * d + 6) * n * n)
+        # Xs and 3 scalars a task, the shared mask -> Kt, A
+        return ((T * (n * d + 3) + n) * itemsize, T * 2 * n * n * itemsize,
+                T * (3 * d + 6) * n * n)
     if name == "rbf_bwd_reductions":
-        # Ainv, Kt, alpha, mask, X -> S1, rw, WX, diagsum
-        return ((2 * n * n + 2 * n + n * d) * itemsize,
-                (2 + n + n * d) * itemsize, (2 * d + 6) * n * n)
+        # Ainv, Kt, alpha a task, the shared mask and X -> S1, rw, WX,
+        # diagsum a task
+        return ((T * (2 * n * n + n) + n + n * d) * itemsize,
+                T * (2 + n + n * d) * itemsize, T * (2 * d + 6) * n * n)
     raise ValueError(name)
+
+
+def _tasks(name, t, ndim):
+    """The task count of ``t``, which has ``ndim`` dimensions unbatched and
+    one more with a leading task axis."""
+    if t.dim() == ndim:
+        return 1
+    if t.dim() == ndim + 1 and t.shape[0] <= _MAX_TASKS:
+        return t.shape[0]
+    raise ValueError("%s: expected %d dimensions, or %d with at most %d "
+                     "tasks, got shape %s" % (name, ndim, ndim + 1,
+                                              _MAX_TASKS, tuple(t.shape)))
 
 
 def _check_cuda(name, tensors, d=None):
@@ -116,16 +141,19 @@ def _stream(t):
 # by one. Direct per-feature
 # differences make coincident points exactly 0, with no norm-trick snap.
 # The backward is the closed form of pallas_gram.py:110-119 in torch.matmul
-# (the JAX backward is plain XLA too).
+# (the JAX backward is plain XLA too). With a task axis, (T, n, d) x
+# (T, m, d) -> (T, n, m) is one launch over a grid of T tile planes: at the
+# multi-output predict's (64, 2048, 2048) chunk it writes 1.07 GB in f32.
 # ---------------------------------------------------------------------------
 
 def sqdist_plain(A, B):
-    """(n, d) x (m, d) -> (n, m) squared distances by per-feature
-    differences, summed in feature order (the kernel's order)."""
-    acc = torch.zeros((A.shape[0], B.shape[0]), dtype=A.dtype,
+    """(..., n, d) x (..., m, d) -> (..., n, m) squared distances by
+    per-feature differences, summed in feature order (the kernel's order);
+    A and B share their leading task axes."""
+    acc = torch.zeros(A.shape[:-1] + (B.shape[-2],), dtype=A.dtype,
                       device=A.device)
-    for k in range(A.shape[1]):
-        diff = A[:, k, None] - B[None, :, k]
+    for k in range(A.shape[-1]):
+        diff = A[..., :, k, None] - B[..., None, :, k]
         acc = acc + diff * diff
     return acc
 
@@ -133,18 +161,19 @@ def sqdist_plain(A, B):
 def _sqdist_forward(A, B):
     if not A.is_cuda:
         return sqdist_plain(A, B)
-    n, d = A.shape
-    m = B.shape[0]
+    tasks = _tasks("sqdist", A, 2)
+    n, d = A.shape[-2:]
+    m = B.shape[-2]
     dtype = _check_cuda("sqdist", (A, B), d)
-    if B.shape[1] != d:
-        raise ValueError("sqdist: feature counts differ, %d and %d"
-                         % (d, B.shape[1]))
+    if B.shape[:-2] != A.shape[:-2] or B.shape[-1] != d:
+        raise ValueError("sqdist: shapes %s and %s do not pair"
+                         % (tuple(A.shape), tuple(B.shape)))
     if n > _MAX_SQDIST_ROWS:
         raise ValueError("sqdist: at most %d rows, got %d"
                          % (_MAX_SQDIST_ROWS, n))
-    out = torch.empty((n, m), dtype=dtype, device=A.device)
+    out = torch.empty(A.shape[:-1] + (m,), dtype=dtype, device=A.device)
     _launch("gpim_sqdist", dtype, _ptr(A), _ptr(B), _ptr(out), n, m, d,
-            _stream(A))
+            tasks, _stream(A))
     sqdist.launches += 1
     return out
 
@@ -161,15 +190,16 @@ class _SqDist(torch.autograd.Function):
         A, B = ctx.saved_tensors
         dA = dB = None
         if ctx.needs_input_grad[0]:
-            dA = 2.0 * (A * g.sum(dim=1, keepdim=True) - g @ B)
+            dA = 2.0 * (A * g.sum(dim=-1, keepdim=True) - g @ B)
         if ctx.needs_input_grad[1]:
-            dB = 2.0 * (B * g.sum(dim=0)[:, None] - g.T @ A)
+            dB = 2.0 * (B * g.sum(dim=-2)[..., None] - g.mT @ A)
         return dA, dB
 
 
 def sqdist(A, B):
     """K1 wrapper: pairwise squared Euclidean distances, (n, d) x (m, d) ->
-    (n, m), differentiable in both arguments. On CUDA, float32 agrees with
+    (n, m), or (T, n, d) x (T, m, d) -> (T, n, m) task by task in one
+    launch, differentiable in both arguments. On CUDA, float32 agrees with
     :func:`sqdist_plain` to a few ulp of the largest distance (the kernel
     may contract the sum into FMAs); coincident points give exactly 0."""
     return _SqDist.apply(A, B)
@@ -192,7 +222,9 @@ sqdist.launches = 0
 # argument; the scalars (v, noise + jitter, alpha) are passed as device
 # scalars, so no Adam step copies one to the host and the wrapper launches
 # nothing else. Not differentiable: the caller (engine._NLLFast) owns the
-# gradient.
+# gradient. With a task axis, Xs (T, n, d) and the scalars (T,) give Kt and
+# A (T, n, n) in one launch, the mask shared: at the multi-output training
+# step's T = 64, n = 2048 it writes 2.15 GB in f32.
 # ---------------------------------------------------------------------------
 
 def _kernel_plain(kernel, s, variance, alpha):
@@ -210,21 +242,26 @@ def _kernel_plain(kernel, s, variance, alpha):
 def masked_system_plain(Xs, mask, variance, noise_plus_jitter, alpha=None,
                         *, kernel):
     """(Kt, A) from scaled inputs: Kt = v k(s) with its diagonal exactly v,
-    A = (m m^T) . (Kt + (noise + jitter) I) + (I - diag m)."""
-    n = Xs.shape[0]
-    K = _kernel_plain(kernel, sqdist_plain(Xs, Xs), variance, alpha)
+    A = (m m^T) . (Kt + (noise + jitter) I) + (I - diag m); with a task
+    axis on ``Xs``, the scalars are one a task."""
+    n = Xs.shape[-2]
+    v, nj, a = (None if x is None else torch.as_tensor(
+        x, dtype=Xs.dtype, device=Xs.device)[..., None, None]
+        for x in (variance, noise_plus_jitter, alpha))
+    K = _kernel_plain(kernel, sqdist_plain(Xs, Xs), v, a)
     eye = torch.eye(n, dtype=Xs.dtype, device=Xs.device)
-    K = torch.where(eye.bool(), variance, K)
+    K = torch.where(eye.bool(), v, K)
     mm = mask[:, None] * mask[None, :]
-    A = mm * (K + noise_plus_jitter * eye) + (1.0 - mask)[:, None] * eye
+    A = mm * (K + nj * eye) + (1.0 - mask)[:, None] * eye
     return K, A
 
 
 def masked_system(Xs, mask, variance, noise_plus_jitter, alpha=None, *,
                   kernel):
     """K2 wrapper: (Kt, A) from scaled inputs ``Xs`` (n, d) and the 0/1
-    padding ``mask`` (n,) in one pass. ``alpha`` only for
-    RationalQuadratic. On CUDA, float32 agrees with
+    padding ``mask`` (n,) in one pass; or, with ``Xs`` (T, n, d) and the
+    scalars (T,), Kt and A (T, n, n) for T tasks in one launch. ``alpha``
+    only for RationalQuadratic. On CUDA, float32 agrees with
     :func:`masked_system_plain` to about 1e-6 of v (one exp of a distance
     that differs by a few ulp)."""
     if not Xs.is_cuda:
@@ -232,7 +269,8 @@ def masked_system(Xs, mask, variance, noise_plus_jitter, alpha=None, *,
                                    alpha, kernel=kernel)
     if kernel not in KERNEL_IDS:
         raise NotImplementedError(kernel)
-    n, d = Xs.shape
+    tasks = _tasks("masked_system", Xs, 2)
+    n, d = Xs.shape[-2:]
     dtype = _check_cuda("masked_system", (Xs, mask), d)
     if mask.shape != (n,):
         raise ValueError("masked_system: mask must be (%d,), got %s"
@@ -242,16 +280,24 @@ def masked_system(Xs, mask, variance, noise_plus_jitter, alpha=None, *,
                          % (_MAX_SYSTEM_ROWS, n))
     if kernel == "RationalQuadratic" and alpha is None:
         raise ValueError("masked_system: RationalQuadratic needs alpha")
-    # device scalars of the kernel's dtype; a 0-d CUDA tensor of that dtype
-    # passes through as it is
-    v, nj, a = (None if x is None else
-                torch.as_tensor(x, dtype=dtype, device=Xs.device).reshape(())
-                for x in (variance, noise_plus_jitter, alpha))
-    Kt = torch.empty((n, n), dtype=dtype, device=Xs.device)
-    A = torch.empty((n, n), dtype=dtype, device=Xs.device)
+    # device scalars of the kernel's dtype, one a task; a CUDA tensor of
+    # that dtype and shape passes through as it is
+    scalars = []
+    for x in (variance, noise_plus_jitter, alpha):
+        if x is not None:
+            x = torch.as_tensor(x, dtype=dtype, device=Xs.device)
+            if x.shape != Xs.shape[:-2]:
+                raise ValueError("masked_system: scalars must have shape %s, "
+                                 "got %s" % (tuple(Xs.shape[:-2]),
+                                             tuple(x.shape)))
+            x = x.contiguous()
+        scalars.append(x)
+    v, nj, a = scalars
+    Kt = torch.empty(Xs.shape[:-1] + (n,), dtype=dtype, device=Xs.device)
+    A = torch.empty_like(Kt)
     _launch("gpim_masked_system", dtype, _ptr(Xs), _ptr(mask), _ptr(v),
             _ptr(nj), None if a is None else _ptr(a), _ptr(Kt), _ptr(A), n,
-            d, KERNEL_IDS[kernel], _stream(Xs))
+            d, KERNEL_IDS[kernel], tasks, _stream(Xs))
     masked_system.launches += 1
     return Kt, A
 
@@ -274,32 +320,40 @@ masked_system.launches = 0
 # same in every run. Where n is not a multiple of the vector width, or an
 # operand does not start 16-byte aligned, the same kernel runs with one
 # element per thread. rw comes out as (n,), not the TPU's (n, 128) lane
-# broadcast.
+# broadcast. With a task axis, Ainv and Kt (T, n, n) are read in one launch
+# whose grid.y is the task (2.15 GB in f32 at T = 64, n = 2048); each task
+# has its own finish counter and partials, so the fixed order, and the
+# run-to-run f32 result, hold task by task.
 # ---------------------------------------------------------------------------
 
 def rbf_bwd_reductions_plain(Ainv, Kt, alpha, mask, X):
-    """(S1, rw, WX, diagsum) with W = (Ainv - a a^T) . (m m^T) . Kt."""
-    W = ((Ainv - alpha[:, None] * alpha[None, :])
+    """(S1, rw, WX, diagsum) with W = (Ainv - a a^T) . (m m^T) . Kt; with a
+    task axis on Ainv, Kt and alpha, one of each a task."""
+    W = ((Ainv - alpha[..., :, None] * alpha[..., None, :])
          * (mask[:, None] * mask[None, :]) * Kt)
-    return (W.sum(), W.sum(dim=1), W @ X,
-            (torch.diagonal(Ainv) * mask * mask).sum())
+    return (W.sum(dim=(-2, -1)), W.sum(dim=-1), W @ X,
+            (torch.diagonal(Ainv, dim1=-2, dim2=-1) * mask * mask).sum(-1))
 
 
 _COUNTERS = {}
 
 
-def _block_counter(device, stream):
-    """K3's zeroed finish counter for launches on ``stream``: launches on
-    one stream run in order, and each leaves the counter at zero again."""
+def _block_counters(device, stream, tasks):
+    """K3's zeroed finish counters, one a task, for launches on ``stream``:
+    launches on one stream run in order, and each leaves its counters at
+    zero again."""
     key = (device, stream.value)
-    if key not in _COUNTERS:
-        _COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    if key not in _COUNTERS or len(_COUNTERS[key]) < tasks:
+        _COUNTERS[key] = torch.zeros(tasks, dtype=torch.int32, device=device)
     return _COUNTERS[key]
 
 
 def rbf_bwd_reductions(Ainv, Kt, alpha, mask, X):
     """K3 wrapper: one pass over Ainv and Kt giving
-    (S1 scalar, rw (n,), WX (n, d), diagsum scalar).
+    (S1 scalar, rw (n,), WX (n, d), diagsum scalar); with Ainv, Kt
+    (T, n, n) and alpha (T, n), the same T times in one launch, as
+    (S1 (T,), rw (T, n), WX (T, n, d), diagsum (T,)), mask (n,) and X
+    (n, d) shared.
 
     On CUDA in float32, each output agrees with the float64
     :func:`rbf_bwd_reductions_plain` of the same inputs to 1e-4 of its
@@ -307,24 +361,27 @@ def rbf_bwd_reductions(Ainv, Kt, alpha, mask, X):
     order); in float64 to 1e-12 of it."""
     if not Ainv.is_cuda:
         return rbf_bwd_reductions_plain(Ainv, Kt, alpha, mask, X)
+    tasks = _tasks("rbf_bwd_reductions", Ainv, 2)
+    lead = Ainv.shape[:-2]
     n, d = X.shape
     dtype = _check_cuda("rbf_bwd_reductions", (Ainv, Kt, alpha, mask, X), d)
-    if Ainv.shape != (n, n) or Kt.shape != (n, n) \
-            or alpha.shape != (n,) or mask.shape != (n,):
-        raise ValueError("rbf_bwd_reductions: expected Ainv, Kt (%d, %d) and "
-                         "alpha, mask (%d,)" % (n, n, n))
+    if Ainv.shape != lead + (n, n) or Kt.shape != lead + (n, n) \
+            or alpha.shape != lead + (n,) or mask.shape != (n,):
+        raise ValueError("rbf_bwd_reductions: expected Ainv, Kt %s, alpha %s "
+                         "and mask (%d,)" % (lead + (n, n), lead + (n,), n))
     dev = X.device
-    rw = torch.empty((n,), dtype=dtype, device=dev)
-    wx = torch.empty((n, d), dtype=dtype, device=dev)
-    partials = torch.empty((2 * max(n, 1),), dtype=dtype, device=dev)
-    sums = torch.empty((2,), dtype=dtype, device=dev)
+    rw = torch.empty(lead + (n,), dtype=dtype, device=dev)
+    wx = torch.empty(lead + (n, d), dtype=dtype, device=dev)
+    partials = torch.empty((2 * max(n, 1) * tasks,), dtype=dtype, device=dev)
+    sums = torch.empty((2 * tasks,), dtype=dtype, device=dev)
     stream = _stream(X)
     _launch("gpim_rbf_bwd_reductions", dtype, _ptr(Ainv), _ptr(Kt),
             _ptr(alpha), _ptr(mask), _ptr(X), _ptr(rw), _ptr(wx),
-            _ptr(partials), _ptr(_block_counter(dev, stream)), _ptr(sums), n,
-            d, stream)
+            _ptr(partials), _ptr(_block_counters(dev, stream, tasks)),
+            _ptr(sums), n, d, tasks, stream)
     rbf_bwd_reductions.launches += 1
-    return sums[0], rw, wx, sums[1]
+    return (sums[:tasks].reshape(lead), rw, wx,
+            sums[tasks:].reshape(lead))
 
 
 rbf_bwd_reductions.launches = 0

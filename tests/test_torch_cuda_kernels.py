@@ -6,8 +6,11 @@ a multiple of the vector width, and K2 and K3 take their scalar
 instantiation where n is not), operands and outputs that do not start
 16-byte aligned, every feature count up to 8, both dtypes, determinism, the
 K1 gradient, the wrappers' validation and launch counts, and the
-closed-form MLL and VFE gradients against the CPU path. One test, of the
-bytes the kernels' bounds count, runs on the CPU.
+closed-form MLL and VFE gradients against the CPU path; and the task axis
+of all three (T = 1, 3 and 64 problems in one launch, ragged n, K3's
+determinism task by task, unbatched calls the same launch as one task) with
+the multi-output losses and gradients against the CPU path. One test, of
+the bytes the kernels' bounds count, runs on the CPU.
 
 The tests marked ``cuda`` need a CUDA device and skip without one. The file
 imports no JAX, so it runs on a machine without it (there the repo's
@@ -106,7 +109,7 @@ def test_sqdist_misaligned_operands_and_output(dev, dtype, m):
         buf = torch.full((n * m + 4,), float("nan"), dtype=dtype, device=dev)
         out = buf[off:off + n * m].view(n, m)
         gk._launch("gpim_sqdist", dtype, gk._ptr(A), gk._ptr(B),
-                   gk._ptr(out), n, m, d, gk._stream(A))
+                   gk._ptr(out), n, m, d, 1, gk._stream(A))
         torch.cuda.synchronize()
         _check_sqdist(out, A, B, dtype)
         # nothing written outside the output
@@ -351,5 +354,218 @@ def test_vfe_loss_and_gradient_cuda_vs_cpu(dev, kernel):
             assert gk.sqdist.launches - before == 2      # Kmm and Kmn
         out[device.type] = [loss.detach().cpu()] + [
             u[k].grad.cpu() for k in u0]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-10)
+
+
+# --------------------------------------------------------------------------
+# The task axis (the multi-output GP): T problems in one launch
+# --------------------------------------------------------------------------
+
+TASKS = [1, 3, 64]
+
+
+def _per_task_close(out, ref, scale, dtype, tol=TOL):
+    """``out`` against ``ref`` task by task, each at its own scale."""
+    for o, r, s in zip(out, ref, scale):
+        _close(o, r, s, dtype, tol)
+
+
+@cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tasks", TASKS)
+@pytest.mark.parametrize("n, m", [(45, 129), (128, 128), (130, 5)])
+def test_batched_sqdist_against_plain(dev, dtype, tasks, n, m):
+    """(T, n, d) x (T, m, d): every task against the plain version, exact
+    zeros at each task's coincident points, on the vector path (m = 128)
+    and the shifted one (m = 129, 5), where a task's rows start at other
+    16-byte offsets than the first task's."""
+    A = _rand((tasks, n, 3), dtype, dev, 30.0, seed=1)
+    B = _rand((tasks, m, 3), dtype, dev, 30.0, seed=2)
+    k = min(n, m) // 2
+    B[:, :k] = A[:, :k]
+    out = gk.sqdist(A, B)
+    assert out.shape == (tasks, n, m)
+    ref = gk.sqdist_plain(A.double(), B.double())
+    _per_task_close(out, ref, ref.abs().amax(dim=(1, 2)), dtype)
+    assert (torch.diagonal(out[:, :k, :k], dim1=-2, dim2=-1) == 0).all()
+    last = gk.sqdist(A[-1].contiguous(), B[-1].contiguous())
+    _close(out[-1], last, ref[-1].abs().max(), dtype)
+
+
+@cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["RBF", "Matern52", "RationalQuadratic"])
+@pytest.mark.parametrize("tasks", TASKS)
+@pytest.mark.parametrize("n", [45, 128, 130])
+def test_batched_masked_system_against_plain(dev, dtype, kernel, tasks, n):
+    """Xs (T, n, d) with T values of v, noise + jitter and alpha, the mask
+    shared; n = 45 takes the scalar instantiation, 128 and 130 (f64) the
+    vector one."""
+    Xs = _rand((tasks, n, 3), dtype, dev, 4.0)
+    mask = (_rand((n,), dtype, dev, seed=3) > 0.2).to(dtype)
+    v = 0.5 + _rand((tasks,), dtype, dev, seed=4)
+    nj = 0.01 * _rand((tasks,), dtype, dev, seed=5)
+    a = (1.0 + _rand((tasks,), dtype, dev, seed=6)
+         if kernel == "RationalQuadratic" else None)
+    Kt, A = gk.masked_system(Xs, mask, v, nj, a, kernel=kernel)
+    assert Kt.shape == A.shape == (tasks, n, n)
+    Kr, Ar = gk.masked_system_plain(
+        Xs.double(), mask.double(), v.double(), nj.double(),
+        None if a is None else a.double(), kernel=kernel)
+    _per_task_close(Kt, Kr, v, dtype)
+    _per_task_close(A, Ar, v + 1.0, dtype)
+    assert (torch.diagonal(Kt, dim1=-2, dim2=-1) == v[:, None]).all()
+    Kl, Al = gk.masked_system(Xs[-1].contiguous(), mask, v[-1], nj[-1],
+                              None if a is None else a[-1], kernel=kernel)
+    _close(Kt[-1], Kl, v[-1], dtype)
+    _close(A[-1], Al, v[-1] + 1.0, dtype)
+
+
+def _batched_bwd_inputs(tasks, n, d, dtype, dev):
+    M = _rand((tasks, n, n), dtype, dev, seed=4)
+    Ainv = M @ M.mT / n + torch.eye(n, dtype=dtype, device=dev)
+    Kt = _rand((tasks, n, n), dtype, dev, seed=5)
+    Kt = 0.5 * (Kt + Kt.mT)
+    alpha = _rand((tasks, n), dtype, dev, seed=6) - 0.5
+    mask = (_rand((n,), dtype, dev, seed=7) > 0.1).to(dtype)
+    X = _rand((n, d), dtype, dev, 10.0, seed=8)
+    return Ainv, Kt, alpha, mask, X
+
+
+def _check_batched_bwd(got, inputs, dtype):
+    Ainv, Kt, alpha, mask, X = [t.double() for t in inputs]
+    tasks, n = alpha.shape
+    assert [tuple(g.shape) for g in got] == [
+        (tasks,), (tasks, n), (tasks, n, X.shape[1]), (tasks,)]
+    for t in range(tasks):
+        absW = ((Ainv[t] - alpha[t][:, None] * alpha[t][None, :]).abs()
+                * Kt[t].abs())
+        row = absW.sum(dim=1).max()
+        scales = (absW.sum(), row, row * 10.0,
+                  Ainv[t].diagonal().abs().sum())
+        ref = gk.rbf_bwd_reductions_plain(Ainv[t], Kt[t], alpha[t], mask, X)
+        for g_, r_, s_ in zip(got, ref, scales):
+            _close(g_[t], r_, s_, dtype, TOL_K3)
+
+
+@cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tasks", TASKS)
+@pytest.mark.parametrize("n", [45, 128, 300])
+def test_batched_rbf_bwd_reductions_against_plain_and_deterministic(
+        dev, dtype, tasks, n):
+    """Ainv, Kt (T, n, n), alpha (T, n), mask and X shared: every task
+    against the plain version, and bitwise the same in every run (each
+    task sums its blocks in a fixed order)."""
+    inputs = _batched_bwd_inputs(tasks, n, 2, dtype, dev)
+    got = gk.rbf_bwd_reductions(*inputs)
+    for _ in range(2):
+        for a, b in zip(got, gk.rbf_bwd_reductions(*inputs)):
+            assert torch.equal(a, b)
+    _check_batched_bwd(got, inputs, dtype)
+
+
+@cuda
+def test_batched_rbf_bwd_reductions_bitwise_deterministic_per_task(dev):
+    """T = 64 at n = 1024 in f32: 8192 blocks finishing in another order
+    each run, 64 finish counters; every task's sums bitwise the same."""
+    inputs = _batched_bwd_inputs(64, 1024, 2, torch.float32, dev)
+    first = gk.rbf_bwd_reductions(*inputs)
+    for _ in range(3):
+        for a, b in zip(first, gk.rbf_bwd_reductions(*inputs)):
+            assert torch.equal(a, b)
+
+
+@cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_unbatched_calls_are_the_batched_kernel_at_one_task(dev, dtype):
+    """An unbatched call and a batched call of one task are the same launch
+    and give the same bits, for all three kernels."""
+    A = _rand((200, 3), dtype, dev, 30.0, seed=1)
+    B = _rand((129, 3), dtype, dev, 30.0, seed=2)
+    assert torch.equal(gk.sqdist(A, B), gk.sqdist(A[None], B[None])[0])
+    mask = (_rand((200,), dtype, dev, seed=3) > 0.2).to(dtype)
+    v, nj = _rand((1,), dtype, dev, seed=4), _rand((1,), dtype, dev, seed=5)
+    one = gk.masked_system(A, mask, v[0], nj[0], kernel="RBF")
+    batched = gk.masked_system(A[None], mask, v, nj, kernel="RBF")
+    for a, b in zip(one, batched):
+        assert torch.equal(a, b[0])
+    inputs = _batched_bwd_inputs(1, 200, 3, dtype, dev)
+    batched = gk.rbf_bwd_reductions(*inputs)
+    one = gk.rbf_bwd_reductions(inputs[0][0], inputs[1][0], inputs[2][0],
+                                *inputs[3:])
+    for a, b in zip(one, batched):
+        assert torch.equal(a, b[0])
+
+
+@cuda
+def test_a_batched_call_is_one_launch_and_checks_its_shapes(dev):
+    X = _rand((5, 64, 2), torch.float32, dev)
+    mask = torch.ones(64, dtype=torch.float32, device=dev)
+    v = torch.ones(5, device=dev)
+    before = (gk.sqdist.launches, gk.masked_system.launches,
+              gk.rbf_bwd_reductions.launches)
+    gk.sqdist(X, X)
+    Kt, A = gk.masked_system(X, mask, v, v * 0.1, kernel="RBF")
+    gk.rbf_bwd_reductions(A, Kt, X[..., 0].contiguous(), mask, X[0])
+    after = (gk.sqdist.launches, gk.masked_system.launches,
+             gk.rbf_bwd_reductions.launches)
+    assert [b - a for a, b in zip(before, after)] == [1, 1, 1]
+    with pytest.raises(ValueError, match="scalars must have shape"):
+        gk.masked_system(X, mask, v[0], v[0], kernel="RBF")
+    with pytest.raises(ValueError, match="do not pair"):
+        gk.sqdist(X, X[:4])
+    with pytest.raises(ValueError, match="expected"):
+        gk.rbf_bwd_reductions(A, Kt, mask, mask, X[0])
+
+
+def _multi_problem(rng, n_obs=90, n=128, T=3):
+    X = np.zeros((n, 2))
+    X[:n_obs] = rng.rand(n_obs, 2) * 10
+    Y = np.zeros((n, T))
+    Y[:n_obs] = np.stack([np.sin(X[:n_obs, 0] / (1 + t))
+                          + 0.05 * rng.randn(n_obs) for t in range(T)], -1)
+    mask = np.zeros(n)
+    mask[:n_obs] = 1.0
+    return X, Y, mask
+
+
+@cuda
+@pytest.mark.parametrize("kernel", ["RBF", "Matern52"])
+def test_multi_output_losses_and_gradients_cuda_vs_cpu(dev, kernel):
+    """The independent loss (K2 and, for RBF, K3 with a task axis) and the
+    correlated loss (K1) with their gradients, card against CPU, f64."""
+    from gpim_tpu_torch.gpreg import multi
+    rng = np.random.RandomState(16)
+    X, Y, mask = _multi_problem(rng)
+    T = Y.shape[1]
+    u_iv = {"lengthscale": -0.5 + 0.2 * rng.randn(T, 2),
+            "outputscale": 0.1 * rng.randn(T), "noise": np.full(T, -2.0),
+            "mean": 0.1 * rng.randn(T)}
+    u_corr = {"lengthscale": np.array([-0.4, 0.1]), "noise": np.asarray(-1.5),
+              "mean": 0.1 * rng.randn(T), "F": rng.rand(T, 1),
+              "task_var": np.full(T, -0.4)}
+    bounds = {"ls_lo": np.zeros(2), "ls_hi": np.full(2, 6.0)}
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        b = {k: t(v) for k, v in bounds.items()}
+        u1 = {k: t(v).requires_grad_(True) for k, v in u_iv.items()}
+        u2 = {k: t(v).requires_grad_(True) for k, v in u_corr.items()}
+        before = (gk.masked_system.launches, gk.rbf_bwd_reductions.launches)
+        l1 = multi._iv_loss(u1, t(X), t(Y), t(mask), b, 1e-5,
+                            kernel=kernel)[0]
+        l1.backward()
+        if device.type == "cuda":
+            assert (gk.masked_system.launches - before[0],
+                    gk.rbf_bwd_reductions.launches - before[1]) == (
+                        1, 1 if kernel == "RBF" else 0)
+        n_obs = int(mask.sum())
+        l2 = multi._corr_loss(u2, t(X[:n_obs]), t(Y[:n_obs]), b, 1e-5,
+                              kernel=kernel)[0]
+        l2.backward()
+        out[device.type] = [l1.detach().cpu(), l2.detach().cpu()] + [
+            u[k].grad.cpu() for u in (u1, u2) for k in u]
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-10)

@@ -123,7 +123,8 @@ def test_package_pins_full_precision_matmuls():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
-    assert gpim_tpu_torch.__all__ == ["utils", "reconstructor", "boptimizer"]
+    assert gpim_tpu_torch.__all__ == ["utils", "reconstructor",
+                                      "vreconstructor", "boptimizer"]
 
 
 def test_dtypes():

@@ -14,12 +14,15 @@ at the flagship's predict shape (4096 x 6144, d = 2), the VFE's Kmn
 loop of 50 launches, two rounds, beside the shape's bound (bytes over
 3.35 TB/s).
 
-``compare`` times the K1 wrapper (``gpim_tpu_torch.ops.gram_kernels
-.sqdist``) of each tree given (a checkout's root; each in its own process,
-in the order given) at the flagship and VFE shapes: three replays of a
-CUDA graph of 50 calls, CUDA events. Unpack a parent commit with
-``git archive`` into a gitignored directory and give it twice, around this
-tree, to compare the two on one card.
+``compare`` times the kernel wrappers (``gpim_tpu_torch.ops.gram_kernels``)
+of each tree given (a checkout's root; each in its own process, in the
+order given): K1 (``sqdist``) at the flagship and VFE shapes, three replays
+of a CUDA graph of 50 calls; K2 (``masked_system``, RBF) and K3
+(``rbf_bwd_reductions``) at the flagship's n = 6144, d = 2, three warm
+loops of 50 launches (as ``chip_smoke.py`` times them); CUDA events, all
+unbatched calls. Unpack a parent commit with ``git archive`` into a
+gitignored directory and give it twice, around this tree, to compare the
+two on one card.
 """
 
 import ctypes
@@ -189,8 +192,24 @@ def variants():
         torch.cuda.empty_cache()
 
 
+def _loop_ms(fn):
+    """Device ms a call: CUDA events around a warm loop of REPS calls."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPS):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / REPS
+
+
 def time_tree(root):
-    """K1 wrapper times of the tree at ``root``; prints one JSON line."""
+    """Kernel wrapper times of the tree at ``root``; prints one JSON line."""
     import torch
     sys.path.insert(0, root)
     from gpim_tpu_torch.ops import _build
@@ -228,7 +247,19 @@ def time_tree(root):
             ts.append(start.elapsed_time(end) / REPS)
         out[label] = {"ms": ts, "normalized_err": err}
         del graph
-    print(json.dumps({"tree": root, "k1": out}), flush=True)
+    n, d = 6144, 2
+    g = torch.Generator().manual_seed(1)
+    Xs = (torch.rand(n, d, generator=g) * 30).cuda()
+    mask = (torch.rand(n, generator=g) > 0.02).float().cuda()
+    v, nj = torch.tensor(0.08).cuda(), torch.tensor(3e-3).cuda()
+    Ainv, Kt = (torch.rand(n, n, generator=g).cuda() for _ in range(2))
+    alpha = torch.rand(n, generator=g).cuda()
+    k2 = [_loop_ms(lambda: gk.masked_system(Xs, mask, v, nj, kernel="RBF"))
+          for _ in range(3)]
+    k3 = [_loop_ms(lambda: gk.rbf_bwd_reductions(Ainv, Kt, alpha, mask, Xs))
+          for _ in range(3)]
+    print(json.dumps({"tree": root, "k1": out, "k2_ms": k2, "k3_ms": k3}),
+          flush=True)
 
 
 def main(argv):
