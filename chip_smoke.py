@@ -16,8 +16,10 @@ its final line):
              shapes and at the BO paths' (bo25: K2/K3 at n = 128, K1 at
              128 x 128 and 640 x 128; its VFE surrogate: K1 at 5 x 5,
              5 x 128 and 640 x 5), and K1 also at the three shapes of the
-             VFE path (Kmn, Kmm, one predict chunk's Ks), with the
-             tolerances below;
+             VFE path (Kmn, Kmm, one predict chunk's Ks) and at the six of
+             the ckpfm4d Kronecker path (d = 1: the factors 10 x 10,
+             64 x 64, 5 x 5 and a predict chunk's cross rows 4096 x 10,
+             4096 x 64, 4096 x 5), with the tolerances below;
              float32 device time per call of each kernel, its plain version
              and (K1) torch.cdist, beside the kernel's bound: K2 and K3 from
              a warm loop of launches (_time_ms), K1 from a CUDA graph of
@@ -71,13 +73,29 @@ its final line):
              once an Adam step, K1 once for the Gram and once a predict
              chunk); the batched Cholesky and triangular-inverse options at
              the eels64 shape, timed.
-9. profile - torch.profiler over PROFILE_STEPS warm float32 training steps
-             of the flagship and of the VFE run, MULTI_PROFILE_STEPS of
-             eels6, eels64 and eels6 correlated, and over one warm BO step
-             (refit, predict, acquisition, ranking) of bo25 EI (float32)
-             and of the spiral run (float64): device ms by kernel and the
-             device's idle share (printed; a profiler that records no
-             device time prints "not measured" and fails nothing).
+9. sk      - skreconstructor, built without use_gpu, on its three ported
+             routes: the cKPFM row of benchmarks/suite.py (ckpfm4d: the
+             10x10x64x5 slab, a full grid of n = 32000 with no NaNs, so the
+             exact Kronecker route; Matern52, 50 iterations, float32) cold
+             then warm with rmse_fit < 0.1, and in float64 against float32
+             (CKPFM_CROSS_TOL); the dense route on the flagship's spiral
+             (RBF, 100 iterations, n = 6144 < 8192 padded rows) and the
+             spectral route on it (Spectral, Q = 4, 100 iterations), each
+             with rmse_obs < 0.1; small problems of every route on the
+             card against the CPU in float64; every run's launches against
+             what its code implies (ckpfm4d: K1 once a factor each step,
+             once a factor and once a factor a chunk in predict; dense: K2
+             and K3 each step, K1 for the Gram and each chunk; spectral:
+             none).
+10. profile - torch.profiler over PROFILE_STEPS warm float32 training steps
+             of the flagship, of the VFE run, of ckpfm4d and of the
+             spectral row, MULTI_PROFILE_STEPS of eels6, eels64 and eels6
+             correlated, and over one warm BO step (refit, predict,
+             acquisition, ranking) of bo25 EI (float32) and of the spiral
+             run (float64): device ms by kernel, the device's idle share,
+             the host's synchronising calls a step and (ckpfm4d) the host
+             time of eigh (printed; a profiler that records no device time
+             prints "not measured" and fails nothing).
 
 Prints the kernels as one JSON line, then as its last line
 {"ok": true, "device": {...}}.
@@ -174,6 +192,25 @@ MULTI_PROFILE_STEPS = 3
 # its measured gap.
 MULTI_CROSS_TOL = {"mean_atol": 5e-5, "sd_atol": 1e-5, "ls_rtol": 4e-4,
                    "noise_rtol": 1e-4}
+# The cKPFM row of benchmarks/suite.py:278-295 (bench_ckpfm_4d_ski), as
+# the suite calls it: the 10x10x64x5 slab (examples/_data.ckpfm_slab, the
+# synthetic field: no expdata on the machine), float32 by the card's
+# default. A full grid with no NaNs, n = 32000: the exact Kronecker route.
+CKPFM = dict(kernel="Matern52", ski=True, grid_points_ratio=1.0,
+             lengthscale=[1.0, 3.0], iterations=50)
+CKPFM_LS = 2.3               # a trained lengthscale, for K1's operands
+SK_CHUNK = 4096              # skreconstructor's test points per chunk
+# skreconstructor's dense and spectral routes on the flagship's spiral
+SK_DENSE = dict(kernel="RBF", iterations=100)
+SK_SPECTRAL = dict(kernel="Spectral", n_mixtures=4, learning_rate=0.05,
+                   iterations=100)
+# ckpfm4d in float32 against float64 at the float32 jitter. Measured on an
+# H100: mean 3.3e-6, sd 3.3e-7, lengthscale 7.4e-7 and noise 2.1e-7 apart
+# (relative for the last two): the Kronecker likelihood is closed form,
+# well curved, and 50 steps end at the same point in both precisions. Each
+# limit is about ten times its measured gap.
+CKPFM_CROSS_TOL = {"mean_atol": 5e-5, "sd_atol": 5e-6, "ls_rtol": 1e-5,
+                   "noise_rtol": 3e-6}
 
 
 def log(msg):
@@ -267,6 +304,25 @@ def small_vector_data(seed=0):
     X = utils.get_full_grid(Y[..., 0]).copy()
     X[:, drop] = np.nan
     return X, Y, utils.get_full_grid(Y[..., 0])
+
+
+def ckpfm_data():
+    """benchmarks/suite.py:281-283: the cKPFM slab and its full grid."""
+    import _data
+    from gpim_tpu_torch import utils
+    R = _data.ckpfm_slab()
+    return R, utils.get_full_grid(R)
+
+
+def small_grid_data(seed=0):
+    """An 8x8x6 full grid with a little noise, in [0, 1]
+    (tests/test_torch_skgpr.py:_grid_data, smaller)."""
+    rng = np.random.RandomState(seed)
+    t = np.linspace(0, 4, 8)
+    R = (np.sin(t)[:, None, None] * np.cos(t)[None, :, None]
+         * np.linspace(1, 2, 6)[None, None, :])
+    R = R + 0.01 * rng.randn(*R.shape)
+    return (R - R.min()) / np.ptp(R)
 
 
 def small_data(seed=0):
@@ -447,6 +503,30 @@ def _vfe_k1_inputs(vfe, dtype):
     return [("Kmn", Xu, Xs, (i, i * stride)),
             ("Kmm", Xu, Xu, (i, i)),
             ("Ks", Xt, Xu, (j, j))]
+
+
+def _kron_k1_inputs(ckpfm, dtype):
+    """K1's operand pairs on the ckpfm4d Kronecker path at a trained
+    lengthscale, one feature each: every grid axis against itself (the
+    factors) and the first predict chunk's coordinate along it against the
+    axis (the cross rows), with their coincident pairs."""
+    import torch
+    from gpim_tpu_torch import utils
+    R, X = ckpfm
+    Xt = utils.prepare_test_data(X)[:SK_CHUNK]
+    t = lambda a: torch.as_tensor(  # noqa: E731
+        np.ascontiguousarray(a) / CKPFM_LS, dtype=dtype,
+        device="cuda").contiguous()
+    ar = lambda k: torch.arange(k, device="cuda")  # noqa: E731
+    factors, crosses = [], []
+    for k, g in enumerate(R.shape):
+        axis = np.arange(g, dtype=np.float64)[:, None]
+        factors.append(("factor %d" % g, t(axis), t(axis), (ar(g), ar(g))))
+        idx = torch.as_tensor(Xt[:, k].astype(np.int64), device="cuda")
+        crosses.append(("cross %dx%d" % (len(Xt), g), t(Xt[:, k:k + 1]),
+                        t(axis), (ar(len(Xt)), idx)))
+    # the factor of 10 and the cross rows against it appear twice
+    return factors[1:] + crosses[1:]
 
 
 def _bo_kernel_inputs(dtype):
@@ -685,9 +765,10 @@ def _batched_cases(eels64, dname, timed):
     return out
 
 
-def phase_kernels(R, X, X_full, vfe, eels64):
+def phase_kernels(R, X, X_full, vfe, eels64, ckpfm):
     """Each kernel against its plain version at the flagship's shapes and
-    at the BO paths', and K1 also at the VFE path's."""
+    at the BO paths', and K1 also at the VFE path's and at the ckpfm4d
+    Kronecker path's."""
     import torch
     from gpim_tpu_torch import utils
     from gpim_tpu_torch.gpreg import engine
@@ -725,6 +806,12 @@ def phase_kernels(R, X, X_full, vfe, eels64):
             log("[kernels]   sqdist VFE %s %d x %d, d = %d"
                 % (label, len(A), len(B), A.shape[1]))
             rec["sqdist"]["vfe_shapes"][label] = _sqdist_case(
+                A, B, zeros, dname, timed)
+        # K1 at the ckpfm4d Kronecker path's one-feature shapes
+        rec["sqdist"]["kron_shapes"] = {}
+        for label, A, B, zeros in _kron_k1_inputs(ckpfm, dtype):
+            log("[kernels]   sqdist ckpfm4d %s, d = 1" % label)
+            rec["sqdist"]["kron_shapes"][label] = _sqdist_case(
                 A, B, zeros, dname, timed)
         del A1, A, B
 
@@ -793,6 +880,8 @@ def phase_kernels(R, X, X_full, vfe, eels64):
         show(name, r)
     for label, r in report["float32"]["sqdist"]["vfe_shapes"].items():
         show("sqdist VFE " + label, r)
+    for label, r in report["float32"]["sqdist"]["kron_shapes"].items():
+        show("sqdist ckpfm4d " + label, r)
     for name, r in report["float32"].items():
         show(name + " eels64", r["batched_shapes"]["eels64"],
              MULTI_TIMING_REPS)
@@ -1020,7 +1109,8 @@ def phase_cross_check(R, X, X_full, f32, vfe, vfe32):
 def _profiled(fn):
     """Run ``fn`` under torch.profiler, synchronised at both ends; returns
     (host ms of the window, {device kernel name: (device ms, launches)},
-    {host op: self host ms}). Ranges that record_function marks on the
+    {host op: (self host ms, total host ms, calls)}). Ranges that
+    record_function marks on the
     device's timeline (torch.optim's "Optimizer.step#Adam.step") span
     kernels and gaps; they are not kernels and are left out."""
     import torch
@@ -1039,16 +1129,23 @@ def _profiled(fn):
                 e, "is_user_annotation", False):
             ms, n = per_name.get(e.name, (0.0, 0))
             per_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    host = {e.key: e.self_cpu_time_total / 1e3
-            for e in prof.key_averages() if e.self_cpu_time_total > 0}
+    host = {e.key: (e.self_cpu_time_total / 1e3, e.cpu_time_total / 1e3,
+                    e.count) for e in prof.key_averages()}
     return wall_ms, per_name, host
 
 
-def _report_profile(label, what, count, profiled, host_ops=0):
+# host calls that wait for the device
+_SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+               "cudaEventSynchronize", "cudaMemcpy")
+
+
+def _report_profile(label, what, count, profiled, host_ops=0, host_keys=()):
     """Print device ms per unit by kernel (the ten largest and the port's
     own), the kernels launched per unit, the share of the host's window in
-    which the device ran no kernel, and the ``host_ops`` host operations
-    with the most self time."""
+    which the device ran no kernel, the host's synchronising calls per
+    unit, the ``host_ops`` host operations with the most self time, and the
+    total host time (its children included) of each op in
+    ``host_keys``."""
     wall_ms, per_name, host = profiled
     busy_ms = sum(ms for ms, _ in per_name.values())
     if busy_ms == 0.0:
@@ -1066,9 +1163,20 @@ def _report_profile(label, what, count, profiled, host_ops=0):
         if i < 10 or any(k in name for k in ours):
             log("[profile] %8.4f ms each %5.1f%%  %s" % (
                 ms / count, 100.0 * ms / busy_ms, name[:100]))
-    for name, ms in sorted(host.items(), key=lambda kv: -kv[1])[:host_ops]:
+    syncs = {k: host[k][2] / count for k in _SYNC_CALLS if k in host}
+    log("[profile]   host calls that wait for the device, each: %s"
+        % json.dumps(syncs))
+    ranked = sorted(((k, v[0]) for k, v in host.items() if v[0] > 0),
+                    key=lambda kv: -kv[1])
+    for name, ms in ranked[:host_ops]:
         log("[profile]   host %8.4f ms each %5.1f%% of the window  %s" % (
             ms / count, 100.0 * ms / wall_ms, name[:80]))
+    for key in host_keys:
+        _, total, calls = host.get(key, (0.0, 0.0, 0))
+        log("[profile]   host %s: %.4f ms each with its children, %.1f%% of "
+            "the window, %g calls each" % (key, total / count,
+                                           100.0 * total / wall_ms,
+                                           calls / count))
 
 
 def phase_profile(label, R, X, X_full, **kwargs):
@@ -1545,6 +1653,187 @@ def phase_multi_profile(eels6, eels64):
                         _profiled(model.train), host_ops=8)
 
 
+# ---------------------------------------------------------------------------
+# structured-kernel GP (skreconstructor)
+# ---------------------------------------------------------------------------
+
+def _sk_expected(model, n_test):
+    """Kernel launches an skreconstructor run implies. Kronecker: K1 once a
+    grid axis an Adam step (its factor), and in predict once a factor and
+    once a factor a chunk (the cross rows). Dense (the multi-output engine
+    at one task): K2 each Adam step, K3 too for RBF, K1 each step for
+    Matern52 (its backward's distances), and in predict K1 for the Gram and
+    once a chunk. Spectral: none."""
+    steps = int(model.iterations)
+    n_chunks = -(-n_test // min(SK_CHUNK, -(-n_test // 128) * 128))
+    if model.kernel_type == "Spectral":
+        return {"sqdist": 0, "masked_system": 0, "rbf_bwd_reductions": 0}
+    if model._kron_engine is not None:
+        d = len(model._kron_engine.dims)
+        return {"sqdist": d * (steps + 1 + n_chunks), "masked_system": 0,
+                "rbf_bwd_reductions": 0}
+    rbf = model.kernel_type == "RBF"
+    return {"sqdist": 1 + n_chunks + (0 if rbf else steps),
+            "masked_system": steps, "rbf_bwd_reductions": steps if rbf else 0}
+
+
+def _run_sk(label, R, X, Xt, **kwargs):
+    """One skreconstructor run (train and predict), built without use_gpu
+    unless ``kwargs`` say otherwise; checks its launches, shapes, NaNs and
+    that every model tensor is on its device. Returns (model, mean, sd,
+    hyperparams, record); the record's rmse is at the observed points."""
+    import torch
+    from gpim_tpu_torch import skreconstructor
+    model = skreconstructor(X, R, Xt, verbose=0, **kwargs)
+    on_card = model.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    mean, sd, hp = model.run()
+    total = time.perf_counter() - t0
+    launches = _read_launches()
+    ph = model.timer.phases
+    obs = ~np.isnan(R)
+    rmse = float(np.sqrt(np.mean((mean[obs] - R[obs]) ** 2)))
+    route = ("spectral" if model.kernel_type == "Spectral" else "kronecker"
+             if model._kron_engine is not None else "dense")
+    rec = {"train_s": ph["train"]["first_s"],
+           "predict_s": ph["predict"]["first_s"], "total_s": total,
+           "step_ms": 1e3 * ph["train"]["first_s"] / model.iterations,
+           "rmse": rmse, "launches": launches, "route": route,
+           "n_train": int(model._Xd.shape[0]), "dtype": str(model.dtype)}
+    shown = ("lengthscale %s" % np.array2string(hp["lengthscale"][-1],
+                                                  precision=4)
+             if "lengthscale" in hp else "weights %s" % np.array2string(
+                 hp["weights"][-1], precision=4))
+    log("[sk] %-27s %s, train %.3f s (%.3f ms a step), predict %.3f s, total "
+        "%.3f s, rmse %.5f, n = %d, %s, launches %s, %s, noise %.6g, loss "
+        "%.6g" % (label, route, rec["train_s"], rec["step_ms"],
+                  rec["predict_s"], total, rmse, rec["n_train"], rec["dtype"],
+                  launches, shown, hp["noise"][-1], model.losses[-1]))
+    if mean.shape != R.shape or sd.shape != R.shape:
+        raise AssertionError("%s: prediction has the wrong shape" % label)
+    if np.isnan(mean).any() or np.isnan(sd).any():
+        raise AssertionError("%s: prediction has NaNs" % label)
+    if on_card:
+        expected = _sk_expected(model, int(np.prod(Xt.shape[1:])))
+        if launches != expected:
+            raise AssertionError("%s: launches %s, the code implies %s"
+                                 % (label, launches, expected))
+        tensors = (list(model.u.values()) + list(model._bounds().values())
+                   + [model._Xd, model._yd, model._maskd])
+        if model._kron_engine is not None:
+            tensors += [model._Y_grid] + list(model._kron_engine._axes)
+        if not all(t.is_cuda for t in tensors):
+            raise AssertionError("%s: a tensor of an skreconstructor built "
+                                 "without use_gpu is not on the card" % label)
+    return model, mean, sd, hp, rec
+
+
+def phase_sk(R, X, X_full, ckpfm):
+    """ckpfm4d (Kronecker) cold then warm with its rmse gate and in float64
+    against float32, the dense and spectral routes on the spiral with
+    theirs, and small problems of every route card against CPU. Returns
+    the warm runs' launches by path."""
+    import torch
+    from gpim_tpu_torch import dtypes, utils
+    paths, recs = {}, {}
+    Rk, Xk = ckpfm
+    _run_sk("ckpfm4d f32 cold", Rk, Xk, Xk, **CKPFM)
+    torch.cuda.reset_peak_memory_stats()
+    m32, k32, s32, h32, recs["ckpfm4d"] = _run_sk("ckpfm4d f32 warm", Rk, Xk,
+                                                 Xk, **CKPFM)
+    recs["ckpfm4d"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if m32._kron_engine is None or m32.dtype != torch.float32:
+        raise AssertionError("ckpfm4d did not take the float32 Kronecker "
+                             "route")
+    paths["ckpfm4d"] = recs["ckpfm4d"]["launches"]
+    # benchmarks/suite.py:292: rmse_fit over the whole slab
+    if not recs["ckpfm4d"]["rmse"] < 0.1:
+        raise AssertionError("ckpfm4d rmse_fit %.4f >= 0.1"
+                             % recs["ckpfm4d"]["rmse"])
+
+    # ckpfm4d in float64 at the float32 jitter against the float32 run
+    _, k64, s64, h64, recs["ckpfm4d_f64"] = _run_sk(
+        "ckpfm4d f64", Rk, Xk, Xk, precision="double",
+        jitter=dtypes.default_jitter(torch.float32), **CKPFM)
+    diffs = {
+        "mean_atol": float(np.abs(k32 - k64).max()),
+        "sd_atol": float(np.abs(s32 - s64).max()),
+        "ls_rtol": float(np.max(np.abs(h32["lengthscale"][-1]
+                                       - h64["lengthscale"][-1])
+                                / np.abs(h64["lengthscale"][-1]))),
+        "noise_rtol": float(abs(h32["noise"][-1] - h64["noise"][-1])
+                            / abs(h64["noise"][-1])),
+    }
+    log("[cross-check] ckpfm4d f32 vs f64: %s (limits %s)"
+        % (json.dumps(diffs), json.dumps(CKPFM_CROSS_TOL)))
+    for k, lim in CKPFM_CROSS_TOL.items():
+        if not diffs[k] <= lim:
+            raise AssertionError("ckpfm4d f32 vs f64 %s %.3e > %.0e"
+                                 % (k, diffs[k], lim))
+
+    # the dense and spectral routes on the flagship's spiral
+    _, _, _, _, recs["sk_dense_spiral"] = _run_sk(
+        "spiral dense RBF f32", R, X, X_full, **SK_DENSE)
+    _, _, _, _, recs["sk_spectral_spiral"] = _run_sk(
+        "spiral spectral f32", R, X, X_full, **SK_SPECTRAL)
+    for path in ("sk_dense_spiral", "sk_spectral_spiral"):
+        paths[path] = recs[path]["launches"]
+        if not recs[path]["rmse"] < 0.1:
+            raise AssertionError("%s rmse_obs %.4f >= 0.1"
+                                 % (path, recs[path]["rmse"]))
+
+    # small problems of every route in float64: the card against the CPU
+    Rs = small_data()
+    Rg = small_grid_data()
+    Xg = utils.get_full_grid(Rg)
+    cases = [("dense RBF", Rs, dict(kernel="RBF")),
+             ("dense Matern52", Rs, dict(kernel="Matern52")),
+             ("spectral", Rs, dict(kernel="Spectral", n_mixtures=3)),
+             ("kronecker RBF", Rg, dict(kernel="RBF", ski_min_points=256)),
+             ("kronecker Matern52", Rg, dict(kernel="Matern52",
+                                             ski_min_points=256))]
+    for name, Rc, kw in cases:
+        Xc, Xtc = ((Xg, Xg) if Rc is Rg else
+                   (utils.get_sparse_grid(Rc), utils.get_full_grid(Rc)))
+        out = {}
+        for use_gpu in (True, False):
+            extra = {} if use_gpu else {"use_gpu": False}
+            _, mean, sd, hp, _ = _run_sk(
+                "small %s %s" % (name, "card" if use_gpu else "cpu"), Rc, Xc,
+                Xtc, iterations=20, learning_rate=0.1, precision="double",
+                **kw, **extra)
+            out[use_gpu] = (mean, sd, hp.get("lengthscale", hp.get(
+                "weights")), hp["noise"])
+        worst = max(float(np.max(np.abs(g - c)) / np.max(np.abs(c)))
+                    for g, c in zip(out[True], out[False]))
+        log("[cross-check] small %s, CUDA vs CPU (f64): max diff / max value "
+            "%.3e (limit %.0e)" % (name, worst, SMALL_RTOL))
+        if not worst <= SMALL_RTOL:
+            raise AssertionError("CUDA and CPU skreconstructor paths "
+                                 "disagree on %s" % name)
+    log("[sk] warm records: " + json.dumps(recs))
+    return paths
+
+
+def phase_sk_profile(R, X, X_full, ckpfm):
+    """PROFILE_STEPS warm training steps of ckpfm4d (float32, with the host
+    time of its eigh calls) and of the spectral row."""
+    from gpim_tpu_torch import skreconstructor
+    for label, args, kw, keys in (
+            ("ckpfm4d", (ckpfm[1], ckpfm[0], ckpfm[1]), CKPFM,
+             ("aten::linalg_eigh",)),
+            ("sk_spectral_spiral", (X, R, X_full), SK_SPECTRAL, ())):
+        model = skreconstructor(*args, verbose=0, **kw)
+        model.train(iterations=1)
+        model.iterations = PROFILE_STEPS
+        _report_profile(label, "warm %s training steps" % str(
+            model.dtype).split(".")[-1], PROFILE_STEPS,
+            _profiled(model.train), host_ops=8, host_keys=keys)
+
+
 def kernel_records(kreport, paths):
     """The kernels line; ``paths`` maps each main path to its warm run's
     launch counts, and ``launches`` is their sum."""
@@ -1579,13 +1868,15 @@ def kernel_records(kreport, paths):
             label: {"shape": v["shape"], "max_abs_err": v["err"]}
             for label, v in r["bo_shapes"].items()}
         if name == "sqdist":
-            out[-1]["vfe_shapes"] = {
-                label: {"shape": v["shape"], "max_abs_err": v["err"],
-                        "ms": v["ms"], "plain_ms": v["plain_ms"],
-                        "bound_ms": v["bound"][0], "bound_by": v["bound"][1],
-                        "bound_share": v["bound"][0] / v["ms"],
-                        "library_ms": v["library_ms"]}
-                for label, v in r["vfe_shapes"].items()}
+            for key in ("vfe_shapes", "kron_shapes"):
+                out[-1][key] = {
+                    label: {"shape": v["shape"], "max_abs_err": v["err"],
+                            "ms": v["ms"], "plain_ms": v["plain_ms"],
+                            "bound_ms": v["bound"][0],
+                            "bound_by": v["bound"][1],
+                            "bound_share": v["bound"][0] / v["ms"],
+                            "library_ms": v["library_ms"]}
+                    for label, v in r[key].items()}
     return out
 
 
@@ -1596,20 +1887,23 @@ def main():
     R, X, X_full = flagship_data()
     vfe = vfe_data()
     eels6, eels64 = eels6_data(), eels64_data()
-    kreport = phase_kernels(R, X, X_full, vfe, eels64)
+    ckpfm = ckpfm_data()
+    kreport = phase_kernels(R, X, X_full, vfe, eels64, ckpfm)
     launches, f32 = phase_flagship(R, X, X_full)
     vfe_launches, vfe32 = phase_vfe(vfe)
     phase_cross_check(R, X, X_full, f32, vfe, vfe32)
     bo_paths, bo25, spiral_bo = phase_bo(R, X, X_full)
     multi_paths = phase_multi(eels6, eels64)
+    sk_paths = phase_sk(R, X, X_full, ckpfm)
     phase_profile("flagship", R, X, X_full, kernel="RBF")
     phase_profile("vfe", *vfe[:3], **VFE)
     phase_multi_profile(eels6, eels64)
+    phase_sk_profile(R, X, X_full, ckpfm)
     phase_bo_profile("bo25_ei_explore", bo25)
     phase_bo_profile("spiral_bo", spiral_bo)
     print(json.dumps({"kernels": kernel_records(
         kreport, {"flagship": launches, "vfe": vfe_launches, **bo_paths,
-                  **multi_paths})}),
+                  **multi_paths, **sk_paths})}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,18 +3,21 @@ gpim_tpu_torch
 ==============
 
 PyTorch/CUDA port of ``gpim_tpu`` for one NVIDIA H100 (Hopper). The JAX
-package is the reference; this package carries its exact and sparse (VFE)
-reconstruction paths, its multi-output GP and its Bayesian-optimisation
-loop end to end:
+package is the reference; this package carries its five public names:
 
-- ``utils``         : NaN-masked grid preparation (numpy)
-- ``reconstructor`` : exact and inducing-point (VFE, ``sparse=True``) GP
-                      regression of 2D images / 3D grids, and its
-                      exploration ``step()``
-- ``vreconstructor``: multi-output GP regression (independent "parallel"
-                      channels, or the correlated Kronecker multitask model)
-- ``boptimizer``    : GP-based Bayesian optimisation of the next
-                      measurement point(s) on a grid
+- ``utils``          : NaN-masked grid preparation (numpy)
+- ``reconstructor``  : exact and inducing-point (VFE, ``sparse=True``) GP
+                       regression of 2D images / 3D grids, and its
+                       exploration ``step()``
+- ``skreconstructor``: structured-kernel GP regression of 2D-4D grids: the
+                       dense exact route, the spectral mixture kernel and
+                       exact Kronecker inference on full grids (the
+                       masked-lattice and off-lattice SKI routes are not
+                       ported yet)
+- ``vreconstructor`` : multi-output GP regression (independent "parallel"
+                       channels, or the correlated Kronecker multitask model)
+- ``boptimizer``     : GP-based Bayesian optimisation of the next
+                       measurement point(s) on a grid
 
 Plain tensor code is PyTorch; the three kernels that ``gpim_tpu`` wrote in
 Pallas are hand-written CUDA for Hopper (``gpim_tpu_torch/csrc``), each
@@ -33,9 +36,11 @@ _torch.set_float32_matmul_precision("highest")
 
 from gpim_tpu_torch import utils  # noqa: E402
 from gpim_tpu_torch.gpreg.gpr import reconstructor  # noqa: E402
+from gpim_tpu_torch.gpreg.skgpr import skreconstructor  # noqa: E402
 from gpim_tpu_torch.gpreg.vgpr import vreconstructor  # noqa: E402
 from gpim_tpu_torch.gpbayes.boptim import boptimizer  # noqa: E402
 
 __version__ = "0.1.0"
 
-__all__ = ["utils", "reconstructor", "vreconstructor", "boptimizer"]
+__all__ = ["utils", "reconstructor", "skreconstructor", "vreconstructor",
+           "boptimizer"]

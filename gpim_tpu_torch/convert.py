@@ -28,7 +28,11 @@ def params_from_numpy(u, device, dtype):
       a ``gpim_tpu`` sparse model is predicted by the port as it stands;
     - ``vreconstructor``, independent: {'lengthscale' (T, d),
       'outputscale', 'noise', 'mean' (T,)}; correlated: {'lengthscale'
-      (d,), 'noise' (), 'mean' (T,), 'F' (T, rank), 'task_var' (T,)}.
+      (d,), 'noise' (), 'mean' (T,), 'F' (T, rank), 'task_var' (T,)};
+    - ``skreconstructor``, dense and Kronecker routes: the independent
+      ``vreconstructor`` layout at T = 1 ({'lengthscale' (1, d),
+      'outputscale', 'noise', 'mean' (1,)}); spectral: {'weights' (Q,),
+      'means' (Q, d), 'scales' (Q, d), 'noise' (), 'mean' ()}.
     """
     return _to_tensors(u, device, dtype)
 

@@ -19,6 +19,8 @@ the exact marginal likelihood and the sparse Titsias VFE bound.
   for the device (:func:`adam_steps`, shared with the multi-output GP):
   losses, raw parameters and Cholesky status are recorded into preallocated
   device tensors and read once after the loop.
+- :func:`mll_from_gram` is the masked NLL of a Gram matrix built
+  elsewhere (the spectral mixture's), with the closed-form dNLL/dK.
 - The sparse path is the Titsias variational free energy (VFE) bound with
   trainable inducing points ``Xu``; its n-wide core (:class:`_VFEWide`) has
   a closed-form backward. On CUDA its Gram matrices Kmm and Kmn, and the
@@ -40,8 +42,8 @@ from gpim_tpu_torch.ops.linalg import safe_cholesky, solve_triangular
 from gpim_tpu_torch.ops.tri import tri_inverse
 
 __all__ = [
-    "constrain", "exact_loss", "vfe_loss", "train", "predict_exact",
-    "predict_vfe", "pad_rows", "chunk_rows",
+    "constrain", "exact_loss", "mll_from_gram", "vfe_loss", "train",
+    "predict_exact", "predict_vfe", "pad_rows", "chunk_rows",
 ]
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -237,6 +239,51 @@ class _NLLFast(torch.autograd.Function):
         return None, dls, dv, dn, d_alpha, None, dy, None, None
 
 
+class _MLLFromGram(torch.autograd.Function):
+    """Masked NLL of an (unmasked) Gram matrix, with the closed-form
+    dNLL/dK (gpim_tpu/gpreg/engine.py:293-340). Returns ``(nll, info)``;
+    ``info`` is the Cholesky status, non-differentiable.
+
+        dNLL/dK     = 0.5 (A^-1 - alpha alpha^T) . (m m^T)
+        dNLL/dnoise = 0.5 (sum_i Ainv_ii m_i - |alpha|^2)
+        dNLL/dym    = alpha,                       alpha = A^-1 ym
+
+    The JAX backward asks for ``Precision.HIGH`` on ``V.T @ V``; here every
+    float32 product is full float32 (TF32 is off package-wide).
+    """
+
+    @staticmethod
+    def forward(ctx, K, noise, ym, mask, jitter):
+        A = _masked_system(K, noise, mask, jitter)
+        L, info = safe_cholesky(A)
+        V = tri_inverse(L)          # both backward solves become gemms
+        z = V @ ym
+        ctx.save_for_backward(V, z, mask)
+        ctx.mark_non_differentiable(info)
+        return _nll_core(L, z, mask), info
+
+    @staticmethod
+    def backward(ctx, g, _g_info):
+        V, z, mask = ctx.saved_tensors
+        alpha = V.T @ z                                   # A^-1 ym
+        Ainv = V.T @ V
+        mm = mask[:, None] * mask[None, :]
+        dK = (0.5 * g) * (Ainv - alpha[:, None] * alpha[None, :]) * mm
+        dnoise = (0.5 * g) * ((torch.diagonal(Ainv) * mask).sum()
+                              - torch.dot(alpha, alpha))
+        # mask and jitter are constants of the training problem
+        return dK, dnoise, g * alpha, None, None
+
+
+def mll_from_gram(K, noise, ym, mask, jitter):
+    """Masked exact NLL core (quadratic + masked log det + n_eff/2 log 2 pi)
+    of a precomputed Gram matrix ``K`` (n, n) and the Cholesky status:
+    ``(nll, info)``. ``ym`` must already be centred and masked. Only K,
+    noise and ym get gradients, in closed form (:class:`_MLLFromGram`), so
+    autograd differentiates the Gram build alone and never the Cholesky."""
+    return _MLLFromGram.apply(K, noise, ym, mask, jitter)
+
+
 # --------------------------------------------------------------------------
 # Sparse (VFE) bound with trainable inducing points
 # --------------------------------------------------------------------------
@@ -347,7 +394,8 @@ def adam_steps(loss_info, u0, lr, iterations, factors=("",)):
     optax.adam's. Nothing in the loop reads a device value: ``info``, the
     Cholesky status of each of ``factors``, is recorded every step and
     checked once at the end, and a failure raises
-    ``torch.linalg.LinAlgError``.
+    ``torch.linalg.LinAlgError``. A loss with no Cholesky factor passes
+    ``factors=()`` and returns ``info`` None.
     """
     u = {k: v.detach().clone().requires_grad_(True) for k, v in u0.items()}
     opt = torch.optim.Adam(list(u.values()), lr=lr)
@@ -365,10 +413,12 @@ def adam_steps(loss_info, u0, lr, iterations, factors=("",)):
         opt.step()
         with torch.no_grad():
             losses[i] = loss
-            infos[i] = info
+            if factors:
+                infos[i] = info
             for k, v in u.items():
                 u_traj[k][i] = v
-    _check_cholesky(infos, "train", factors)
+    if factors:
+        _check_cholesky(infos, "train", factors)
     return {k: v.detach() for k, v in u.items()}, u_traj, losses
 
 

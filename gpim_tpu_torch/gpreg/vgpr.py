@@ -17,10 +17,11 @@ CPU with ``use_gpu=False``; without a CUDA device the default raises.
 - Prediction is the closed-form mean and sd; ``predict(n_samples=...)``
   gives the reference's Monte-Carlo estimator of the same posterior.
 
-The correlated mode's initial task factor ``F`` is drawn from a
-``torch.Generator`` seeded with ``seed``, not from ``jax.random``: the two
-give other numbers from one seed. ``mesh=`` (the parallel slice) is not
-ported yet and raises ``NotImplementedError``.
+The correlated mode's initial task factor ``F`` is the draw of
+``jax.random.normal(PRNGKey(seed))`` that ``gpim_tpu`` makes
+(:func:`gpim_tpu_torch.ops.prng.jax_normal`), so one seed starts both
+packages at the same point. ``mesh=`` (the parallel slice) is not ported
+yet and raises ``NotImplementedError``.
 """
 
 import time
@@ -34,6 +35,7 @@ from gpim_tpu_torch.gpreg import engine, multi
 from gpim_tpu_torch.gpreg.gpr import _NP_DTYPE, _resolve_device
 from gpim_tpu_torch.kernels.transforms import (
     interval_inverse, positive_inverse)
+from gpim_tpu_torch.ops.prng import jax_normal
 from gpim_tpu_torch.utils import gridutils
 from gpim_tpu_torch.utils.profiling import Timer
 
@@ -128,11 +130,9 @@ class vreconstructor:
                       "mean": zeros}
         else:
             rank = int(kwargs.get("task_rank", 1))
-            gen = torch.Generator().manual_seed(seed)
-            F = 0.1 * torch.randn((num_tasks, rank), generator=gen,
-                                  dtype=self.dtype)
+            F = 0.1 * jax_normal(seed, (num_tasks, rank), np_dtype)
             self.u = {"lengthscale": u_ls, "noise": one, "mean": zeros,
-                      "F": F.to(self.device), "task_var": full(one)}
+                      "F": self._tensor(F), "task_var": full(one)}
 
         self._set_data(X_np, Y_np)
         self.hyperparams = {}

@@ -9,8 +9,10 @@ K1 gradient, the wrappers' validation and launch counts, and the
 closed-form MLL and VFE gradients against the CPU path; and the task axis
 of all three (T = 1, 3 and 64 problems in one launch, ragged n, K3's
 determinism task by task, unbatched calls the same launch as one task) with
-the multi-output losses and gradients against the CPU path. One test, of
-the bytes the kernels' bounds count, runs on the CPU.
+the multi-output losses and gradients against the CPU path; and K1 at the
+exact Kronecker route's one-feature shapes, with the Kronecker and spectral
+losses and gradients against the CPU path. One test, of the bytes the
+kernels' bounds count, runs on the CPU.
 
 The tests marked ``cuda`` need a CUDA device and skip without one. The file
 imports no JAX, so it runs on a machine without it (there the repo's
@@ -569,3 +571,97 @@ def test_multi_output_losses_and_gradients_cuda_vs_cpu(dev, kernel):
             u[k].grad.cpu() for u in (u1, u2) for k in u]
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-10)
+
+
+# --------------------------------------------------------------------------
+# The structured-kernel slice: K1 at d = 1 on the Kronecker shapes, the
+# Kronecker and spectral losses card against CPU
+# --------------------------------------------------------------------------
+
+# the 10 x 10 x 64 x 5 cKPFM grid: each factor (G, G), each predict chunk's
+# cross rows (4096, G), one feature
+KRON_SHAPES = [(10, 10), (64, 64), (5, 5), (4096, 64), (4096, 10),
+               (4096, 5)]
+
+
+@cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n, m", KRON_SHAPES)
+def test_sqdist_at_the_kronecker_shapes(dev, dtype, n, m):
+    """Grid coordinates over a lengthscale: the factor diagonals, and every
+    cross row at a grid point, are exactly 0."""
+    g = torch.arange(m, dtype=dtype, device=dev)[:, None] / 1.7
+    x = (torch.arange(n, device=dev) % m).to(dtype)[:, None] / 1.7
+    out = gk.sqdist(x, g)
+    _close(out, gk.sqdist_plain(x.double(), g.double()),
+           float(m - 1) ** 2 / 1.7 ** 2, dtype)
+    rows = torch.arange(n, device=dev)
+    assert (out[rows, rows % m] == 0).all()
+
+
+def _kron_problem(rng, dims=(6, 5, 4)):
+    axes = [np.arange(s, dtype=float) for s in dims]
+    Y = rng.rand(*dims)
+    u = {"lengthscale": np.array([0.3, -0.2, 0.1]),
+         "outputscale": np.asarray(0.2), "noise": np.asarray(-2.0),
+         "mean": np.asarray(0.4)}
+    bounds = {"ls_lo": np.zeros(3), "ls_hi": np.full(3, 5.0)}
+    return axes, Y, u, bounds
+
+
+@cuda
+@pytest.mark.parametrize("kernel", ["RBF", "Matern52"])
+def test_kronecker_loss_and_gradient_cuda_vs_cpu(dev, kernel):
+    """The exact Kronecker loss (one K1 launch a factor, eigh, the
+    factor-level backward) and its gradient, card against CPU, f64."""
+    from gpim_tpu_torch.gpreg import kron_model
+    axes, Y, u0, bounds = _kron_problem(np.random.RandomState(17))
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        u = {k: t(v).requires_grad_(True) for k, v in u0.items()}
+        before = gk.sqdist.launches
+        loss, _ = kron_model._loss(u, [t(a) for a in axes], t(Y),
+                                   {k: t(v) for k, v in bounds.items()},
+                                   1e-5, kernel)
+        loss.backward()
+        if device.type == "cuda":
+            assert gk.sqdist.launches - before == len(axes)
+        out[device.type] = [loss.detach().cpu()] + [
+            u[k].grad.cpu() for k in u0]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12)
+
+
+@cuda
+def test_spectral_loss_and_gradient_cuda_vs_cpu(dev):
+    """The spectral mixture loss (plain PyTorch Gram, mll_from_gram's
+    closed-form backward) and its gradient, card against CPU, f64; no
+    kernel of the package is launched."""
+    from gpim_tpu_torch.gpreg import structured
+    rng = np.random.RandomState(18)
+    n_obs, n = 90, 128
+    X = np.zeros((n, 2))
+    X[:n_obs] = rng.rand(n_obs, 2) * 10
+    y = np.zeros(n)
+    y[:n_obs] = np.sin(X[:n_obs, 0]) + 0.05 * rng.randn(n_obs)
+    mask = np.zeros(n)
+    mask[:n_obs] = 1.0
+    u0 = {"weights": rng.randn(3) * 0.3, "means": rng.randn(3, 2) - 2.0,
+          "scales": rng.randn(3, 2) - 1.5, "noise": np.asarray(-2.0),
+          "mean": np.asarray(0.1)}
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        u = {k: t(v).requires_grad_(True) for k, v in u0.items()}
+        before = (gk.sqdist.launches, gk.masked_system.launches,
+                  gk.rbf_bwd_reductions.launches)
+        loss, info = structured._sm_loss(u, t(X), t(y), t(mask), 1e-5)
+        loss.backward()
+        assert int(info) == 0
+        assert (gk.sqdist.launches, gk.masked_system.launches,
+                gk.rbf_bwd_reductions.launches) == before
+        out[device.type] = [loss.detach().cpu()] + [
+            u[k].grad.cpu() for k in u0]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12)

@@ -208,9 +208,12 @@ def test_kernel_functions_match_jax(kernel):
 
 
 def test_spectral_and_unknown_kernels_raise():
-    for name in ("Spectral", "Periodic"):
-        with pytest.raises(NotImplementedError):
-            functional.get_kernel_fn(name)
+    """The spectral mixture is a kernel of the port now; a name neither
+    package knows raises."""
+    assert functional.get_kernel_fn("Spectral") is functional.spectral_mixture
+    assert set(functional.KERNELS) == set(jfunctional.KERNELS)
+    with pytest.raises(NotImplementedError):
+        functional.get_kernel_fn("Periodic")
 
 
 def test_transforms_match_jax():

@@ -5,10 +5,10 @@ data and initial parameters: run() in both modes and both kernels
 Monte-Carlo predictor, checkpoints read across packages both ways, and the
 twins of tests/test_vgpr.py's surface checks.
 
-The correlated mode draws its initial task factor F from a seeded
-``torch.Generator``, where gpim_tpu draws it from ``jax.random``; each
-comparison carries gpim_tpu's initial parameters across through
-``gpim_tpu_torch.convert``.
+Most comparisons carry gpim_tpu's initial parameters across through
+``gpim_tpu_torch.convert``; the correlated mode's initial task factor F is
+also held to ``jax.random.normal(PRNGKey(seed))``, and one correlated run
+starts both packages from the seed alone.
 """
 
 import numpy as np
@@ -199,12 +199,39 @@ def test_unported_options_raise(kwargs, match):
                                       **kwargs)
 
 
-def test_correlated_task_factor_is_seeded():
-    """The initial F is 0.1 N(0, 1) from a torch.Generator of ``seed``:
-    the same seed gives the same F, another seed another."""
+SEED_CASES = [(seed, rank, precision) for seed in (0, 1, 7, 123456)
+              for rank in (1, 2) for precision in ("double", "single")]
+
+
+@pytest.mark.parametrize("seed, rank, precision", SEED_CASES)
+def test_correlated_task_factor_is_seeded(seed, rank, precision):
+    """The initial F is gpim_tpu's 0.1 jax.random.normal(PRNGKey(seed))
+    draw: float64 to 1e-12, float32 to rtol 1e-5 (XLA's float32 erf_inv
+    is a polynomial)."""
+    import jax
     X, Y = get_vector_data()
-    F = [gpim_tpu_torch.vreconstructor(
-        X, Y, verbose=0, use_gpu=False, seed=s, task_rank=2).u["F"]
-        for s in (0, 0, 1)]
-    assert F[0].shape == (3, 2)
-    assert torch.equal(F[0], F[1]) and not torch.equal(F[0], F[2])
+    np_dtype = np.float64 if precision == "double" else np.float32
+    F = gpim_tpu_torch.vreconstructor(
+        X, Y, verbose=0, use_gpu=False, seed=seed, task_rank=rank,
+        precision=precision).u["F"]
+    ref = 0.1 * np.asarray(jax.random.normal(
+        jax.random.PRNGKey(seed), (3, rank), dtype=np_dtype))
+    assert F.shape == (3, rank) and F.numpy().dtype == np_dtype
+    assert_allclose(F.numpy(), ref,
+                    rtol=1e-12 if precision == "double" else 1e-5)
+
+
+def test_correlated_run_from_the_seed_alone_matches_gpim_tpu():
+    """No parameter carried across: one seed starts both packages at the
+    same point, and the runs agree to float64 round-off."""
+    X, Y = get_vector_data()
+    Xtest = utils.get_full_grid(Y[..., 0])
+    kw = dict(independent=False, iterations=5, precision="double", seed=11,
+              task_rank=2, verbose=0)
+    mean_j, sd_j, hp_j = gpim_tpu.vreconstructor(X, Y, Xtest, **kw).run()
+    mean, sd, hp = gpim_tpu_torch.vreconstructor(X, Y, Xtest, use_gpu=False,
+                                                 **kw).run()
+    _close(mean, mean_j, 1e-6)
+    _close(sd, sd_j, 1e-6)
+    for k in hp:
+        _close(hp[k], hp_j[k], 1e-6, k)
