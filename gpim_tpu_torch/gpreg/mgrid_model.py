@@ -1,0 +1,319 @@
+"""
+Masked-lattice SKI engine on tensors (counterpart of
+``gpim_tpu/gpreg/mgrid_model.py``): the structured route of
+``skreconstructor`` for NaN-masked data on the Cartesian data lattice,
+which is what ``utils.get_sparse_grid`` gives.
+
+With the inducing grid equal to the data grid the interpolation is a masked
+identity, and the operator is A v = M . K_UU (M . v) + (noise + jitter) v:
+per-dimension mode products and masks (:mod:`gpim_tpu_torch.ops.ski`), exact
+in W, so off-lattice interpolation is never needed for such data.
+
+Training is Adam on the SKI marginal likelihood of
+:func:`ski.ski_mll_from_mvm`: split-preconditioned CG over the data and the
+Rademacher probes, the SLQ log-determinant and trace-estimated gradients.
+Each Adam step builds the d kernel factors once (d K1 launches on CUDA).
+The preconditioner (the factored Kronecker eigen-root, :class:`ski.KronRoot`)
+is rebuilt at the start of each training segment, whose length adapts to
+the realized CG iterations, the schedule ``gpim_tpu`` runs
+(mgrid_model.py:596-642): a segment of 2 steps first, then twice as long
+(up to 10) while the last step needed at most 8 CG iterations, and
+half as long (at least 2) when it needed 16 or more. The host reads one
+value a segment for this.
+
+Prediction on a Cartesian test grid uses exact per-dimension
+cross-covariances and the Nystrom variance of the same eigen-root; scattered
+test points go through the per-point cross rows in chunks of up to 4096.
+
+Not carried from ``gpim_tpu``, each a TPU artefact: the 128-multiple pad
+dodge (``pad_dodge``, ``GPIM_TPU_PAD_DODGE``) and its non-finite check, the
+fused whole-training device program (``_train_fused``, ``_FUSED_MAX_G``;
+eager PyTorch has the one host segment loop with the same schedule), and
+the compile-only memory accounting (``train_memory_analysis``). Not ported
+yet: ``mesh=`` and the experimental warm-started CG.
+"""
+
+import math
+
+import numpy as np
+import torch
+
+from gpim_tpu_torch.gpreg import engine
+from gpim_tpu_torch.gpreg.multi import _constrain_task as _constrain
+from gpim_tpu_torch.kernels.transforms import interval_log_jacobian
+from gpim_tpu_torch.ops import kron_exact, ski
+
+__all__ = ["MaskedGridEngine", "detect_masked_lattice",
+           "cartesian_axes_from_points"]
+
+_LOG_2PI = math.log(2.0 * math.pi)
+_PREDICT_CHUNK = 4096
+_MAX_SEGMENT = 10           # the longest training segment between rebuilds
+
+
+# --------------------------------------------------------------------------
+# host-side lattice detection (numpy)
+# --------------------------------------------------------------------------
+
+def _fit_uniform_axis(vals_2d, rtol=1e-6):
+    """Given per-line coordinate samples (N, n_other) with NaNs, recover a
+    uniform axis a + b*i by least squares over the observed lines; None if
+    the observed coordinates are not uniform within tolerance."""
+    N = vals_2d.shape[0]
+    line_val = np.full(N, np.nan)
+    for i in range(N):
+        row = vals_2d[i]
+        row = row[~np.isnan(row)]
+        if len(row):
+            if np.ptp(row) > rtol * (abs(row[0]) + 1.0):
+                return None                    # not constant along the line
+            line_val[i] = row[0]
+    obs = ~np.isnan(line_val)
+    if obs.sum() < 2:
+        return None
+    i_obs = np.nonzero(obs)[0]
+    A = np.stack([np.ones(len(i_obs)), i_obs.astype(np.float64)], -1)
+    coef, *_ = np.linalg.lstsq(A, line_val[obs], rcond=None)
+    axis = coef[0] + coef[1] * np.arange(N)
+    span = np.abs(axis).max() + 1.0
+    if np.abs(axis[i_obs] - line_val[obs]).max() > rtol * span:
+        return None
+    if abs(coef[1]) < 1e-12:
+        return None
+    return axis
+
+
+def detect_masked_lattice(X_raw, y_raw, rtol=1e-6):
+    """If ``X_raw`` (d, *y.shape) is a (possibly NaN-masked) mgrid over
+    uniform per-dim axes, the list of 1D axes; else None. Fully unmeasured
+    grid lines take the fitted axis's coordinates."""
+    X_raw = np.asarray(X_raw, np.float64)
+    shape = np.shape(y_raw)
+    d = len(shape)
+    if X_raw.ndim != d + 1 or X_raw.shape != (d,) + tuple(shape):
+        return None
+    axes = []
+    for k in range(d):
+        vals = np.moveaxis(X_raw[k], k, 0).reshape(shape[k], -1)
+        axis = _fit_uniform_axis(vals, rtol)
+        if axis is None:
+            return None
+        axes.append(axis)
+    return axes
+
+
+def cartesian_axes_from_points(X_flat, dims, rtol=1e-6):
+    """Per-dim axes if the (m, d) rows are the C-order flattening of a
+    Cartesian product over ``dims`` with uniform axes; else None."""
+    axes = kron_exact.detect_cartesian(np.asarray(X_flat, np.float64), dims,
+                                       rtol)
+    if axes is None:
+        return None
+    for ax in axes:
+        if len(ax) > 1 and np.ptp(np.diff(ax)) > rtol * (np.abs(ax).max()
+                                                         + 1.0):
+            return None
+    return axes
+
+
+# --------------------------------------------------------------------------
+# loss, preconditioner, prediction
+# --------------------------------------------------------------------------
+
+def _kernel_params(p):
+    return {"lengthscale": p["lengthscale"], "variance": p["variance"]}
+
+
+def _loss(u, axes, mask_flat, g0, Qp, lam_n, y_flat, bounds, jitter, *,
+          kernel, grid_shape, cg_iters, record_iters=False):
+    """The masked-lattice MAP objective (gpim_tpu mgrid_model.py:134-169):
+    the SKI marginal likelihood over all G cells, less the exact
+    0.5 (G - n_obs) log(noise) of the masked cells' noise-only rows, less
+    the lengthscales' interval log-Jacobian; with ``record_iters`` also the
+    realized CG iterations."""
+    core = ski.ski_mll_from_mvm(
+        ski.make_masked_grid_mvm(grid_shape, mask_flat, batch_first=True),
+        cg_iters, g0, return_iters=True)
+    p = _constrain(u, bounds)
+    yc = (y_flat - p["mean"]) * mask_flat
+    noise_pj = p["noise"] + jitter
+    n_eff = mask_flat.sum()
+    G = y_flat.shape[0]
+    factors = ski.grid_kernel_factors(kernel, _kernel_params(p), axes)
+    base, it = core(factors, noise_pj, yc, Qp, lam_n)
+    loss = (base + 0.5 * n_eff * _LOG_2PI
+            - 0.5 * (G - n_eff) * torch.log(noise_pj)
+            - interval_log_jacobian(u["lengthscale"], bounds["ls_lo"],
+                                    bounds["ls_hi"]))
+    return (loss, it) if record_iters else loss
+
+
+@torch.no_grad()
+def _build_precond(u, axes, mask_flat, bounds, *, kernel, rank):
+    """The preconditioner's orthonormal Nystrom form (Q, lam_n): the
+    factored :class:`ski.KronRoot`, noise-independent and fixed for a
+    training segment; rank 0 gives an empty dense basis."""
+    if rank == 0:
+        return mask_flat.new_zeros((mask_flat.shape[0], 0)), \
+            mask_flat.new_zeros((0,))
+    p = _constrain(u, bounds)
+    factors = ski.grid_kernel_factors(kernel, _kernel_params(p), axes)
+    Qp, lam_n, _, _ = ski.mgrid_split_root(factors, mask_flat, rank)
+    return Qp, lam_n
+
+
+@torch.no_grad()
+def _predict_grid(u, axes, mask_flat, y_flat, t_axes, bounds, jitter, *,
+                  kernel, grid_shape, cg_iters, precond_rank):
+    predictor = ski.make_grid_predictor(kernel, axes, grid_shape, cg_iters,
+                                        precond_rank)
+    p = _constrain(u, bounds)
+    mean, var = predictor(_kernel_params(p), p["noise"] + jitter, mask_flat,
+                          (y_flat - p["mean"]) * mask_flat, t_axes,
+                          p["variance"])
+    return mean + p["mean"], var + p["noise"]   # noiseless=False semantics
+
+
+@torch.no_grad()
+def _predict_points(u, axes, mask_flat, y_flat, Xt_chunks, bounds, jitter, *,
+                    kernel, grid_shape, cg_iters, precond_rank):
+    """Scattered test points: per-point Kronecker cross rows contracted
+    mode by mode for the mean, the Nystrom extension for the variance, one
+    chunk at a time (d K1 launches a chunk)."""
+    p = _constrain(u, bounds)
+    kp = _kernel_params(p)
+    am, Bmat, sel = ski.mgrid_solve_core(
+        kernel, kp, axes, grid_shape, mask_flat, precond_rank, cg_iters,
+        p["noise"] + jitter, (y_flat - p["mean"]) * mask_flat)
+    d = len(axes)
+    means, variances = [], []
+    for xc in Xt_chunks:
+        E = ski.grid_cross_factors(kernel, kp, axes,
+                                   [xc[:, k] for k in range(d)])
+        T = torch.einsum("bi,i...->b...", E[0], am)
+        for k in range(1, d):
+            T = torch.einsum("bi,bi...->b...", E[k], T)
+        means.append(T)
+        B = E[0] @ sel[0]
+        for k in range(1, d):
+            B = B * (E[k] @ sel[k])
+        H = B @ Bmat
+        variances.append((p["variance"] - H.square().sum(1)).clamp_min(0.0))
+    return (torch.cat(means) + p["mean"],
+            torch.cat(variances) + p["noise"])
+
+
+class MaskedGridEngine:
+    """The axes, mask, observations and probes of one lattice dataset.
+
+    ``axes``: the per-dim lattice coordinates (numpy); ``mask_grid`` and
+    ``y_grid`` shaped like the lattice (NaNs in ``y_grid`` are ignored
+    where ``mask_grid`` is False). The probes are
+    ``numpy.random.default_rng(seed).choice([-1, 1], (n_probes, G))``, the
+    draw ``gpim_tpu`` makes, so one seed gives both packages the same
+    probes. ``precond_rank`` None means 1024 at 500k cells or more, else
+    512 (a larger eigenspace costs little per CG iteration on the factored
+    basis and saves iterations at scale).
+    """
+
+    def __init__(self, kernel, axes, mask_grid, y_grid, dtype, device, *,
+                 cg_iters=64, n_probes=8, precond_rank=None, seed=0):
+        self.kernel = kernel
+        self.dtype = dtype
+        self.device = device
+        np_dtype = np.float32 if dtype == torch.float32 else np.float64
+        self.axes_np = [np.asarray(a, np_dtype) for a in axes]
+        self.grid_shape = tuple(len(a) for a in self.axes_np)
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa
+        self._axes = [t(a) for a in self.axes_np]
+        G = math.prod(self.grid_shape)
+        mask_flat = np.asarray(mask_grid, np_dtype).reshape(-1)
+        self._mask = t(mask_flat)
+        self._y = t(np.nan_to_num(np.asarray(y_grid, np_dtype)).reshape(-1))
+        self.cg_iters = int(min(cg_iters, G))
+        if precond_rank is None:
+            precond_rank = 1024 if G >= 500_000 else 512
+        self.precond_rank = int(min(precond_rank, G))
+        rng = np.random.default_rng(seed)
+        pm1 = np.asarray([-1.0, 1.0], np_dtype)
+        # probes of the split operator, batch-first (a probe per row)
+        self._g0 = t(rng.choice(pm1, size=(n_probes, G)))
+        # the realized CG iterations of every step and the segment lengths
+        # of the last train() (the adaptive schedule's record)
+        self.last_cg_iters = np.zeros((0,), np_dtype)
+        self.last_segments = []
+
+    def train(self, u0, bounds, lr, jitter, *, iterations,
+              record_cg_iters=False):
+        """Adam on the masked-lattice objective with the adaptive rebuild
+        schedule; returns (final u, trajectory of lengthscale (iters, d),
+        noise and loss (iters,)[, cg_iters (iters,)]). The Adam moments
+        carry across segments; the trajectory holds the post-update
+        hyperparameters and the pre-update loss of every step."""
+        n = int(iterations)
+        u = {k: v.detach().clone().requires_grad_(True)
+             for k, v in u0.items()}
+        opt = torch.optim.Adam(list(u.values()), lr=lr)
+        losses = torch.empty((n,), dtype=self.dtype, device=self.device)
+        its = torch.empty_like(losses)
+        u_traj = {k: torch.empty((n,) + tuple(v.shape), dtype=v.dtype,
+                                 device=self.device) for k, v in u.items()}
+        segments = []
+        i, s_next = 0, 2
+        while i < n:
+            s = min(s_next, n - i)
+            Qp, lam_n = _build_precond(u, self._axes, self._mask, bounds,
+                                       kernel=self.kernel,
+                                       rank=self.precond_rank)
+            for _ in range(s):
+                opt.zero_grad(set_to_none=True)
+                loss, it = _loss(u, self._axes, self._mask, self._g0, Qp,
+                                 lam_n, self._y, bounds, jitter,
+                                 kernel=self.kernel,
+                                 grid_shape=self.grid_shape,
+                                 cg_iters=self.cg_iters, record_iters=True)
+                loss.backward()
+                opt.step()
+                with torch.no_grad():
+                    losses[i], its[i] = loss, it
+                    for k, v in u.items():
+                        u_traj[k][i] = v
+                i += 1
+            segments.append(s)
+            last_it = float(its[i - 1])               # one read a segment
+            if last_it >= 16.0:
+                s_next = max(2, s // 2)
+            elif last_it <= 8.0:
+                s_next = min(_MAX_SEGMENT, s * 2)
+        with torch.no_grad():
+            p = _constrain(u_traj, bounds)
+        traj = {"lengthscale": p["lengthscale"], "noise": p["noise"],
+                "loss": losses}
+        self.last_cg_iters = its.cpu().numpy()
+        self.last_segments = segments
+        if record_cg_iters:
+            traj["cg_iters"] = its
+        return {k: v.detach() for k, v in u.items()}, traj
+
+    def predict(self, u, bounds, jitter, Xtest_clean, fulldims):
+        """Predictive mean and variance (tensors) at the NaN-free test points
+        ``Xtest_clean`` (numpy (n_test, d)): through the cross factors when
+        the points are a Cartesian grid of shape ``fulldims``, else by the
+        scattered-point path in chunks of up to 4096."""
+        t_axes = None
+        if fulldims is not None and len(fulldims) == len(self.grid_shape) \
+                and len(Xtest_clean) == math.prod(fulldims):
+            t_axes = cartesian_axes_from_points(Xtest_clean, fulldims)
+        kw = dict(kernel=self.kernel, grid_shape=self.grid_shape,
+                  cg_iters=self.cg_iters, precond_rank=self.precond_rank)
+        t = lambda a: torch.as_tensor(  # noqa: E731
+            np.asarray(a), dtype=self.dtype, device=self.device)
+        if t_axes is not None:
+            return _predict_grid(u, self._axes, self._mask, self._y,
+                                 [t(a) for a in t_axes], bounds, jitter, **kw)
+        Xt = np.asarray(Xtest_clean)
+        chunks, n_t = engine.chunk_rows(
+            Xt, min(_PREDICT_CHUNK, max(128, len(Xt))))
+        mean, var = _predict_points(u, self._axes, self._mask, self._y,
+                                    t(chunks), bounds, jitter, **kw)
+        return mean[:n_t], var[:n_t]

@@ -22,16 +22,22 @@ Routes, chosen as ``gpim_tpu`` chooses them:
   (:mod:`gpim_tpu_torch.gpreg.structured`), no hand-written kernel;
 - exact Kronecker (``ski=True``, at least ``ski_min_points`` rows covering
   a full Cartesian grid with no NaNs): per-dimension factors (K1) and
-  ``eigh`` (:mod:`gpim_tpu_torch.gpreg.kron_model`).
+  ``eigh`` (:mod:`gpim_tpu_torch.gpreg.kron_model`);
+- masked lattice (``ski=True``, at least ``ski_min_points`` rows of a
+  NaN-masked grid on uniform axes, which is what ``utils.get_sparse_grid``
+  gives; ``lattice=True``, the default): split-preconditioned CG with the
+  SLQ log-determinant over the masked Kronecker operator, K1 for every
+  kernel factor (:mod:`gpim_tpu_torch.gpreg.mgrid_model`).
 
 Not ported yet, and raising ``NotImplementedError`` when the model is
-built: the masked-lattice and off-lattice SKI routes (``ski=True`` on a
-large NaN-masked or off-lattice grid; they stand on ``gpim_tpu``'s
-``ops/ski.py``) and ``mesh=`` (the parallel slice).
+built: the off-lattice SKI route (``ski=True`` on large data that is not
+on a uniform lattice, or with ``lattice=False``; ``gpim_tpu``'s
+``gpreg/ski_model.py``) and ``mesh=`` (the parallel slice).
 
 Reference defects stay fixed, as in ``gpim_tpu``: ``predict()`` without a
 test grid warns and predicts at the training points, and ``max_root`` is
-kept (it caps the SKI routes' variance rank).
+kept: it caps the masked-lattice route's preconditioner and Nystrom
+variance rank.
 """
 
 import time
@@ -41,7 +47,7 @@ import numpy as np
 import torch
 
 from gpim_tpu_torch import convert, dtypes
-from gpim_tpu_torch.gpreg import engine, multi, structured
+from gpim_tpu_torch.gpreg import engine, mgrid_model, multi, structured
 from gpim_tpu_torch.gpreg.gpr import _NP_DTYPE, _resolve_device
 from gpim_tpu_torch.gpreg.kron_model import KronEngine
 from gpim_tpu_torch.kernels.transforms import (
@@ -71,9 +77,10 @@ class skreconstructor:
     verbose, seed (the spectral initialisation); kwargs: precision
     ('single'/'double'; default: double on the CPU, single on CUDA), jitter,
     num_batches, maxroot (or max_root), grid_points_ratio, isotropic,
-    n_mixtures (default 4), ski_min_points (default 8192); lattice,
-    cg_iterations, n_probes and precond_rank are accepted and set the SKI
-    routes, which are not ported yet.
+    n_mixtures (default 4), ski_min_points (default 8192), and for the
+    masked-lattice route lattice (default True), cg_iterations (64),
+    n_probes (8) and precond_rank (None: 1024 at 500k grid cells or more,
+    else 512); seed also draws that route's probes.
     """
 
     def __init__(self,
@@ -126,9 +133,16 @@ class skreconstructor:
         self.num_batches = kwargs.get("num_batches", 1)
         self.maxroot = kwargs.get("maxroot", kwargs.get("max_root", 100))
         self.grid_points_ratio = kwargs.get("grid_points_ratio", 1.0)
-        self._ski_min_points = int(kwargs.get("ski_min_points", _SKI_MIN_N))
+        self._engine_opts = {
+            "ski_min_points": int(kwargs.get("ski_min_points", _SKI_MIN_N)),
+            "lattice": bool(kwargs.get("lattice", True)),
+            "cg_iterations": int(kwargs.get("cg_iterations", 64)),
+            "n_probes": int(kwargs.get("n_probes", 8)),
+            "precond_rank": kwargs.get("precond_rank"),
+            "seed": seed,
+        }
         # the route first: an unported one raises before any work
-        self._build_engines(y, X_np, y_np)
+        self._build_engines(X, y, X_np, y_np)
 
         isotropic = bool(kwargs.get("isotropic"))
         n_mixtures = kwargs.get("n_mixtures") or 4
@@ -165,40 +179,57 @@ class skreconstructor:
         return torch.as_tensor(np.asarray(x, _NP_DTYPE[self.dtype]),
                                device=self.device)
 
-    def _build_engines(self, y, X_np, y_np):
-        """The route, as gpim_tpu/gpreg/skgpr.py:162-222 chooses it: exact
-        Kronecker inference when ``ski`` is asked for on at least
-        ``ski_min_points`` padded rows that cover a full Cartesian grid with
-        no NaNs, the dense exact engine below that size; the masked-lattice
-        and off-lattice SKI routes raise."""
+    def _build_engines(self, X, y, X_np, y_np):
+        """The route, as gpim_tpu/gpreg/skgpr.py:162-222 chooses it, when
+        ``ski`` is asked for on at least ``ski_min_points`` padded rows:
+        exact Kronecker inference if they cover a full Cartesian grid with
+        no NaNs, else the masked-lattice engine if the raw grid ``X`` is a
+        NaN-masked lattice of uniform axes (and ``lattice``); the dense
+        exact engine below that size. The off-lattice SKI route raises."""
+        opts = self._engine_opts
         self._kron_engine = None
+        self._mgrid_engine = None
         self._Y_grid = None
         n_pad = dtypes.round_up(max(len(X_np), 1), _PAD_BUCKET)
-        if not (self.do_ski and n_pad >= self._ski_min_points):
+        if not (self.do_ski and n_pad >= opts["ski_min_points"]):
             return
         axes = None
         if len(X_np) == int(np.prod(np.shape(y))):
             axes = kron_exact.detect_cartesian(X_np, np.shape(y))
-        if axes is None:
+        if axes is not None:
+            self._kron_engine = KronEngine(self.kernel_type, axes,
+                                           np.shape(y), self.dtype,
+                                           self.device)
+            self._Y_grid = self._tensor(y_np.reshape(np.shape(y)))
+            if self.verbose == 2:
+                print("Kronecker exact grid:", np.shape(y))
+            return
+        lat_axes = (mgrid_model.detect_masked_lattice(X, y)
+                    if opts["lattice"] else None)
+        if lat_axes is None:
             raise NotImplementedError(
-                "ski=True on %d observations that do not cover a full grid "
-                "takes the masked-lattice or off-lattice SKI route, which is "
-                "not ported yet (it comes with the ops/ski.py slice of "
-                "gpim_tpu_torch); pass ski=False for the dense exact GP"
-                % len(X_np))
-        self._kron_engine = KronEngine(self.kernel_type, axes, np.shape(y),
-                                       self.dtype, self.device)
-        self._Y_grid = self._tensor(y_np.reshape(np.shape(y)))
+                "ski=True on %d observations that are not a NaN-masked "
+                "uniform lattice%s takes the off-lattice SKI route "
+                "(gpim_tpu's gpreg/ski_model.py SKIEngine: grid "
+                "interpolation, ski_mvm, Lanczos), which is not ported to "
+                "gpim_tpu_torch yet; pass ski=False for the dense exact GP"
+                % (len(X_np), "" if opts["lattice"] else " (lattice=False)"))
+        self._mgrid_engine = mgrid_model.MaskedGridEngine(
+            self.kernel_type, lat_axes, ~np.isnan(y), y, self.dtype,
+            self.device, cg_iters=opts["cg_iterations"],
+            n_probes=opts["n_probes"], precond_rank=opts["precond_rank"],
+            seed=opts["seed"])
         if self.verbose == 2:
-            print("Kronecker exact grid:", np.shape(y))
+            print("Masked-lattice grid:", np.shape(y))
 
     def update_data(self, X, y):
-        """Install a new training set and rebuild the route (the Kronecker
-        engine binds the construction-time grid). Trained hyperparameters
-        are kept: a following train() continues warm."""
+        """Install a new training set and rebuild the route (the structured
+        engines bind the construction-time grid and mask, so the route may
+        change). Trained hyperparameters are kept: a following train()
+        continues warm, and the time series runs on."""
         X_np, y_np = gridutils.prepare_training_data(
             X, y, precision=self._prec_str)
-        self._build_engines(y, X_np, y_np)
+        self._build_engines(X, y, X_np, y_np)
         self._set_data(X_np, y_np)
 
     def _set_data(self, X_np, y_np):
@@ -243,6 +274,13 @@ class skreconstructor:
                     {k: v[0] for k, v in self.u.items()}, self._Y_grid,
                     self._bounds(), lr, self.jitter, iterations=iters)
                 self.u = {k: v[None] for k, v in u_k.items()}
+                traj["lengthscale"] = traj["lengthscale"][:, None, :]
+                traj["noise"] = traj["noise"][:, None]
+            elif self._mgrid_engine is not None:
+                u_g, traj = self._mgrid_engine.train(
+                    {k: v[0] for k, v in self.u.items()}, self._bounds(), lr,
+                    self.jitter, iterations=iters)
+                self.u = {k: v[None] for k, v in u_g.items()}
                 traj["lengthscale"] = traj["lengthscale"][:, None, :]
                 traj["noise"] = traj["noise"][:, None]
             else:
@@ -308,9 +346,18 @@ class skreconstructor:
         if kwargs.get("num_batches") is not None:
             self.num_batches = kwargs.get("num_batches")
         if kwargs.get("max_root") is not None:
-            # kept, not dropped as in the reference (skgpr.py:305-306); it
-            # caps the variance rank of the SKI routes
+            # kept, not dropped as in the reference (skgpr.py:305-306): on
+            # the masked lattice the variance root is the preconditioner's
+            # eigen-root, so max_root caps its rank and never raises it
+            # (gpim_tpu/gpreg/skgpr.py:357-376)
             self.maxroot = kwargs.get("max_root")
+            eng = self._mgrid_engine
+            if eng is not None and eng.precond_rank > 0:
+                capped = int(min(self.maxroot, eng.precond_rank))
+                if self.verbose and capped < eng.precond_rank:
+                    print("max_root=%d caps the Nystrom/preconditioner "
+                          "rank (was %d)" % (capped, eng.precond_rank))
+                eng.precond_rank = capped
         if self.verbose:
             print('Calculating predictive mean and uncertainty...')
         nan_rows = np.isnan(self.Xtest).any(axis=1)
@@ -320,6 +367,10 @@ class skreconstructor:
                 mean, var = self._kron_engine.predict(
                     {k: v[0] for k, v in self.u.items()}, self._Y_grid,
                     self._bounds(), self.jitter, Xtest_clean)
+            elif self._mgrid_engine is not None:
+                mean, var = self._mgrid_engine.predict(
+                    {k: v[0] for k, v in self.u.items()}, self._bounds(),
+                    self.jitter, Xtest_clean, self.fulldims)
             else:
                 nb = max(1, int(self.num_batches))
                 target = (-(-len(self.Xtest) // nb) if nb > 1

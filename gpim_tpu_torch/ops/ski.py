@@ -1,17 +1,94 @@
 """
-Structured-kernel-interpolation building blocks (counterpart of
-``gpim_tpu/ops/ski.py``). Only the per-dimension grid kernel factors are
-ported so far, which the exact Kronecker engine
-(:mod:`gpim_tpu_torch.gpreg.kron_model`) builds every step; the
-interpolation operator, CG, SLQ, Lanczos and the Nystrom variance come with
-the masked-lattice and off-lattice SKI routes.
+Structured-kernel-interpolation building blocks on tensors (counterpart of
+``gpim_tpu/ops/ski.py``): the solver core of the SKI routes and the
+masked-lattice operator.
+
+With data on the Cartesian data lattice (NaNs at unmeasured cells, as
+``utils.get_sparse_grid`` gives it) the inducing grid equals the data grid
+and the SKI operator is
+
+    A v = M . K_UU (M . v) + (noise + jitter) v,   K_UU = (x)_k K_k,
+
+per-dimension mode products (gemms) and elementwise masks, no gather and
+no scatter (:func:`make_masked_grid_mvm`). Around it:
+
+- split-preconditioned CG (:func:`split_pcg`): plain CG on
+  P^-1/2 A P^-1/2, with P = noise I + Q diag(lam_n) Q^T applied through an
+  orthonormal Nystrom basis of the Kronecker eigen-root
+  (:func:`split_root`, :func:`split_apply`). The Woodbury form of P^-1
+  loses every digit in float32 at a million cells (see the block comment
+  above :func:`_orth_eig`). On the masked lattice the basis stays factored
+  (:class:`KronRoot`): per-dimension eigenvector tables, a sorted mode
+  index and an r x r rotation, never a (G, r) matrix;
+- stochastic Lanczos quadrature of the log-determinant from the CG
+  tridiagonals (:func:`_slq_from_tridiag`, one batched ``eigh`` on the
+  host), and its
+  gradient by Hutchinson trace estimation (:func:`ski_mll_from_mvm`, an
+  ``autograd.Function`` whose backward differentiates a surrogate
+  quadratic in the operator; nothing differentiates through CG or
+  ``eigh``);
+- prediction on a Cartesian test grid with exact per-dimension
+  cross-covariances and the Nystrom variance of the same eigen-root
+  (:func:`make_grid_predictor`), and the exact posterior variance at a few
+  cells by CG (:func:`mgrid_exact_var_probe`).
+
+Every kernel factor and cross factor is built by the kernel functions, so
+on a CUDA tensor its distances are one K1 launch at d = 1. The operator
+takes its factors as arguments: a loss evaluation builds them once and
+every CG iteration reuses them (``gpim_tpu`` rebuilds them inside every
+mvm and leaves the hoisting to XLA).
+
+TPU workarounds of ``gpim_tpu`` not carried here: the
+``optimization_barrier`` pins (eager PyTorch fuses nothing), and the
+batch-first rationale of 128-lane tiling. The batch-first layout (probes as
+rows) stays the CG layout all the same: every CG vector is then a
+contiguous row and every mode product a plain or strided-batched gemm.
+Not ported yet: the off-lattice interpolation operator (``ski_mvm``,
+``build_interp``, ``kron_eig_root``, ``lanczos``, ``make_ski_predictor``,
+``ski_mll``), the multi-device mode products, and the experimental
+warm-started CG (``warm_start``).
 """
 
+import math
+from typing import NamedTuple, Tuple
+
+import numpy as np
 import torch
 
 from gpim_tpu_torch.kernels.functional import get_kernel_fn
+from gpim_tpu_torch.ops.kron_exact import modeprod
 
-__all__ = ["grid_kernel_factors"]
+__all__ = [
+    "grid_kernel_factors", "kron_mvm_bf",
+    "make_masked_grid_mvm", "KronRoot", "split_root", "split_apply",
+    "mgrid_split_root", "batched_pcg", "batched_cg", "split_pcg",
+    "ski_mll_from_mvm", "grid_kr_rows", "grid_nystrom_var",
+    "grid_cross_factors", "make_grid_predictor", "mgrid_exact_var_probe",
+    "kernel_self_diag", "mgrid_solve_core",
+]
+
+# CG reads whether every column has converged on the host only every this
+# many iterations (each read waits for the device). The iterations after
+# the last column froze change nothing (see batched_pcg), so the results
+# are those of an exit test on every iteration.
+CG_EXIT_CHECK_EVERY = 4
+# row blocks of the Nystrom core and of the grid variance: ~256 MB each
+_BLOCK_BYTES = 256 * 1024 * 1024
+
+
+# --------------------------------------------------------------------------
+# kernel factors and mode products
+# --------------------------------------------------------------------------
+
+def _factor_params(p, k, d):
+    """The 1D kernel parameters of grid axis ``k``: its lengthscale, and
+    the output variance on the first axis only."""
+    ls = torch.broadcast_to(p["lengthscale"], (d,))
+    pk = {"lengthscale": ls[k][None],
+          "variance": p["variance"] if k == 0 else 1.0}
+    if "alpha" in p:
+        pk["alpha"] = p["alpha"]
+    return pk
 
 
 def grid_kernel_factors(kernel, p, grids):
@@ -26,12 +103,590 @@ def grid_kernel_factors(kernel, p, grids):
     """
     kfn = get_kernel_fn(kernel)
     d = len(grids)
-    ls = torch.broadcast_to(p["lengthscale"], (d,))
-    factors = []
-    for k, g in enumerate(grids):
-        pk = {"lengthscale": ls[k][None],
-              "variance": p["variance"] if k == 0 else 1.0}
-        if "alpha" in p:
-            pk["alpha"] = p["alpha"]
-        factors.append(kfn(pk, g[:, None], g[:, None]))
-    return factors
+    return [kfn(_factor_params(p, k, d), g[:, None], g[:, None])
+            for k, g in enumerate(grids)]
+
+
+def grid_cross_factors(kernel, p, grids, test_axes):
+    """Per-dim 1D cross-covariances C_k = k_1d(test_axis, grid_axis), shaped
+    (m_k, g_k); the output variance multiplies C_0. The grid kernel is a
+    product of 1D kernels, so (x)_k C_k is the exact train-test
+    cross-covariance. One K1 launch each on a CUDA tensor."""
+    kfn = get_kernel_fn(kernel)
+    d = len(grids)
+    return [kfn(_factor_params(p, k, d), t[:, None], g[:, None])
+            for k, (t, g) in enumerate(zip(test_axes, grids))]
+
+
+def _mode_bf(t, M, k):
+    """Apply M (m, n) along grid axis ``k`` of the batch-first tensor ``t``
+    (b, n_1, ..., n_d), whose axis k + 1 has n entries: out[..., i, ...] =
+    sum_x M[i, x] t[..., x, ...]. One gemm, strided-batched for a middle
+    axis, with no transposed copy of ``t``."""
+    shape = t.shape
+    pre = math.prod(shape[:k + 1])
+    post = math.prod(shape[k + 2:])
+    if post == 1:
+        out = t.reshape(pre, shape[k + 1]) @ M.mT
+    else:
+        out = torch.matmul(M, t.reshape(pre, shape[k + 1], post))
+    return out.reshape(shape[:k + 1] + (M.shape[0],) + shape[k + 2:])
+
+
+def kron_mvm_bf(factors, t):
+    """Batch-first mode products: ``t`` is (b, g_1, ..., g_d) and factor k
+    is applied as sum_x factors[k][x, m] t[..., x, ...], i.e. factors[k]^T
+    (pass the transpose of a non-symmetric factor; kernel Gram factors are
+    symmetric)."""
+    for k, f in enumerate(factors):
+        t = _mode_bf(t, f.mT, k)
+    return t
+
+
+def make_masked_grid_mvm(grid_shape, mask_flat, batch_first=False):
+    """mvm(factors, noise_pj, v) = M . (x)factors (M . v) + noise_pj v, the
+    masked-lattice operator; ``v`` is (G,) or (G, b), or batch-first (b, G)
+    with ``batch_first`` (the CG layout). ``mask_flat`` (G,) is 1 at
+    observed cells. The factors come from :func:`grid_kernel_factors`,
+    built once by the caller for as many products as it needs."""
+    grid_shape = tuple(int(s) for s in grid_shape)
+    if batch_first:
+        def mvm(factors, noise_pj, v):
+            squeeze = v.dim() == 1
+            if squeeze:
+                v = v[None, :]
+            b = v.shape[0]
+            t = kron_mvm_bf(factors,
+                            (v * mask_flat).reshape((b,) + grid_shape))
+            out = mask_flat * t.reshape(b, -1) + noise_pj * v
+            return out[0] if squeeze else out
+        return mvm
+
+    def mvm(factors, noise_pj, v):
+        squeeze = v.dim() == 1
+        if squeeze:
+            v = v[:, None]
+        b = v.shape[1]
+        # gpim_tpu's kron_mvm: (x)_k K_k along the grid modes
+        t = modeprod(factors, (v * mask_flat[:, None]).reshape(
+            grid_shape + (b,))).reshape(-1, b)
+        out = mask_flat[:, None] * t + noise_pj * v
+        return out[:, 0] if squeeze else out
+    return mvm
+
+
+# --------------------------------------------------------------------------
+# the Kronecker eigenspace
+# --------------------------------------------------------------------------
+
+def _decode_flat(flat, grid_shape):
+    """Per-dim indices from flat row-major indices."""
+    rem = flat
+    out = []
+    for g in reversed(grid_shape):
+        out.append(rem % g)
+        rem = torch.div(rem, g, rounding_mode="floor")
+    return out[::-1]
+
+
+def _kron_top_modes(factors, rank, dim_cap=None):
+    """Per-dim ``eigh`` and the top-``rank`` Kronecker modes: (lam_top
+    (rank,) descending, pruned per-dim eigenvector tables Us [(g_k, r_k)],
+    per-dim mode indices mdim [(rank,)] into them). Each per-dim spectrum
+    is pruned to its top min(g_k, rank, dim_cap) values first
+    (gpim_tpu/ops/ski.py:378-417: lossless at the rank, a heuristic under a
+    tighter ``dim_cap``).
+
+    The selection is a stable descending sort, where ``gpim_tpu`` takes
+    ``lax.top_k``: two equal grid axes give exactly tied products
+    lam_i lam_j = lam_j lam_i, and both put the lower flat index first, so
+    the ports pick the same modes at the rank boundary.
+    """
+    cap = rank if dim_cap is None else min(rank, int(dim_cap))
+    lams, Us = [], []
+    for f in factors:
+        lam, U = torch.linalg.eigh(f)                 # ascending
+        r_k = int(min(f.shape[0], cap))
+        lams.append(lam.flip(0)[:r_k])
+        Us.append(U.flip(1)[:, :r_k])
+    lam_prod = lams[0]
+    for lam in lams[1:]:
+        lam_prod = (lam_prod[:, None] * lam[None, :]).reshape(-1)
+    rank = int(min(rank, lam_prod.shape[0]))
+    lam_sorted, order = torch.sort(lam_prod, descending=True, stable=True)
+    lam_top = lam_sorted[:rank].clamp_min(0.0)
+    mdim = _decode_flat(order[:rank], tuple(lam.shape[0] for lam in lams))
+    return lam_top, Us, mdim
+
+
+# --------------------------------------------------------------------------
+# split preconditioning: the float32-stable form of the Woodbury solve
+# --------------------------------------------------------------------------
+#
+# P^-1 = (noise I + L L^T)^-1 by the Woodbury identity computes
+# (v - L C^-1 L^T v) / noise, a difference of two terms that agree to
+# ~noise/lam in the top eigenspace: at G ~ 1.2M and lam_max/noise ~ 3e5 its
+# float32 round-off exceeds the true value, r^T P^-1 r goes negative and
+# the solve is lost (gpim_tpu/ops/ski.py:420-446). Plain CG on the split
+# operator P^-1/2 A P^-1/2 with P^+-1/2 through an orthonormal Nystrom
+# basis
+#
+#     N = L^T L = Un lam_n Un^T,   Q = L Un lam_n^-1/2   (Q^T Q = I),
+#     P^-1/2 v = v/sqrt(noise) + Q [(1/sqrt(lam_n+noise)
+#                                    - 1/sqrt(noise)) (Q^T v)]
+#
+# amplifies round-off by only sqrt(lam/noise); (Q, lam_n) does not depend
+# on the noise, so it is built once a training segment.
+
+
+def _orth_eig(N):
+    """Eigendecomposition of a Nystrom core N = L^T L, pruned: (lam_n
+    clamped at 0 and zeroed below 1e-6 of its largest, Un, inv_root with the
+    pruned columns zeroed)."""
+    lam_n, Un = torch.linalg.eigh(N)
+    lam_n = lam_n.clamp_min(0.0)
+    good = lam_n > 1e-6 * lam_n.max()
+    inv_root = torch.where(good, lam_n.clamp_min(1e-30).rsqrt(),
+                           torch.zeros_like(lam_n))
+    return torch.where(good, lam_n, torch.zeros_like(lam_n)), Un, inv_root
+
+
+def split_root(Lp):
+    """Orthonormal Nystrom basis of a dense preconditioner root Lp (n, r):
+    (Q, lam_n, Un) with Q^T Q = I on the kept columns and
+    Lp Lp^T = Q diag(lam_n) Q^T."""
+    if Lp.shape[1] == 0:
+        return Lp, Lp.new_zeros((0,)), Lp.new_zeros((0, 0))
+    lam_n, Un, inv_root = _orth_eig(Lp.mT @ Lp)
+    return Lp @ (Un * inv_root[None, :]), lam_n, Un
+
+
+class KronRoot(NamedTuple):
+    """Factored orthonormal Nystrom basis of the masked Kronecker
+    eigen-root, Lp = M . ((x)_k U_k)[:, sel] . diag(rl), Q = Lp C with
+    C = Un lam_n^-1/2. Products with Q and Q^T are d mode products, a
+    gather or scatter of r entries of the pruned mode tensor and one r x r
+    gemm: the (G, r) matrix is never formed."""
+    Us: Tuple[torch.Tensor, ...]  # pruned per-dim eigenvector tables (g_k, r_k)
+    mflat: torch.Tensor           # (r,) int64 flat mode index into the
+    #                               pruned tensor, ascending
+    rl: torch.Tensor              # (r,) sqrt(lam_top), in mflat order
+    C: torch.Tensor               # (r, r) Un diag(lam_n^-1/2)
+    mask: torch.Tensor            # (G,) observed-cell mask
+
+
+def _kron_root_ops(q):
+    """(QT, Qm) of a :class:`KronRoot`, batch-first: QT maps (b, G) to
+    (b, r), Qm maps (b, r) to (b, G)."""
+    grid_shape = tuple(U.shape[0] for U in q.Us)
+    pruned = tuple(U.shape[1] for U in q.Us)
+    G, Gp = math.prod(grid_shape), math.prod(pruned)
+
+    def QT(v):
+        b = v.shape[0]
+        t = (q.mask * v).reshape((b,) + grid_shape)
+        for k, U in enumerate(q.Us):
+            t = _mode_bf(t, U.mT, k)                  # applies U_k^T
+        sel = t.reshape(b, Gp).index_select(1, q.mflat)
+        return (sel * q.rl) @ q.C
+
+    def Qm(w):
+        b = w.shape[0]
+        c = q.rl * (w @ q.C.mT)
+        t = w.new_zeros((b, Gp)).index_copy_(1, q.mflat, c)
+        t = t.reshape((b,) + pruned)
+        for k, U in enumerate(q.Us):
+            t = _mode_bf(t, U, k)                     # applies U_k
+        return q.mask * t.reshape(b, G)
+
+    return QT, Qm
+
+
+def split_apply(Q, lam_n, noise_pj, vec_axis=0):
+    """(pisqrt, logdetP) for P = noise_pj I + Q diag(lam_n) Q^T:
+    ``pisqrt(v)`` applies P^-1/2 to a vector (n,) or to a block, (n, b) for
+    ``vec_axis`` 0 or batch-first (b, n) for 1; ``logdetP`` is exact. ``Q``
+    is a dense (n, r) basis (:func:`split_root`) or a :class:`KronRoot`
+    (:func:`mgrid_split_root`). Rank 0 gives pisqrt = v / sqrt(noise)."""
+    s = noise_pj.rsqrt()
+    dd = (lam_n + noise_pj).rsqrt() - s
+    if isinstance(Q, KronRoot):
+        QT, Qm = _kron_root_ops(Q)
+        n_total = Q.mask.shape[0]
+
+        def apply_bf(v):
+            return s * v + Qm(QT(v) * dd)
+    else:
+        n_total = Q.shape[0]
+
+        def apply_bf(v):
+            return s * v + ((v @ Q) * dd) @ Q.mT
+
+    def pisqrt(v):
+        if v.dim() == 1:
+            return apply_bf(v[None, :])[0]
+        return apply_bf(v) if vec_axis == 1 else apply_bf(v.mT).mT
+
+    logdetP = (n_total * torch.log(noise_pj)
+               + torch.log1p(lam_n / noise_pj).sum())
+    return pisqrt, logdetP
+
+
+def _kr_gram(sel, lam_top, mask_flat, block_bytes=_BLOCK_BYTES):
+    """N = Lp^T Lp of the masked Kronecker eigen-root Lp = diag(mask)
+    KR(sel) diag(sqrt(lam_top)) (gpim_tpu/ops/ski.py:610-645), from the
+    observed cells' rows alone: a masked row of Lp is zero, so the sum
+    over the n_obs rows is the sum over all G (at 30% observed, 0.3 of
+    the gemm). Each row is a product of d gathered rows of the mode
+    tables, built a block of about ``block_bytes`` at a time, so the
+    (G, r) root is never held whole. Reading the number of observed cells
+    waits for the device once."""
+    r = int(lam_top.shape[0])
+    root_lam = lam_top.sqrt()
+    obs = torch.nonzero(mask_flat).squeeze(1)
+    grid_shape = tuple(int(s.shape[0]) for s in sel)
+    nb = max(1, block_bytes // max(lam_top.element_size() * r, 1))
+    N = lam_top.new_zeros((r, r))
+    for i in range(0, obs.shape[0], nb):
+        cells = obs[i:i + nb]
+        cols = root_lam * mask_flat[cells, None]
+        for s, idx in zip(sel, _decode_flat(cells, grid_shape)):
+            cols = cols * s.index_select(0, idx)
+        N.addmm_(cols.mT, cols)
+    return N
+
+
+def mgrid_split_root(factors, mask_flat, rank, dim_cap="auto"):
+    """:func:`split_root` of the masked-lattice operator, factored: returns
+    (KronRoot, lam_n, Un, modes) with modes = (lam_top, Us, mdim, sel) in the
+    ascending flat-mode order every piece shares (``sel[k]`` =
+    Us[k][:, mdim[k]], what prediction consumes). Noise-independent; no
+    (G, r) matrix is formed (:func:`_kr_gram`).
+
+    ``dim_cap``: "auto" caps each dimension's candidates at ~4 rank^(1/d)
+    (right for the training preconditioner, where a cap can only cost CG
+    iterations); None selects uncapped, as prediction must, because its
+    Nystrom variance uses this eigenspace with no CG behind it.
+    """
+    d = len(factors)
+    if dim_cap == "auto":
+        dim_cap = max(16, int(np.ceil(4.0 * rank ** (1.0 / max(d, 1)))))
+    lam_top, Us, mdim = _kron_top_modes(factors, rank, dim_cap=dim_cap)
+    flat = mdim[0]
+    for k in range(1, d):
+        flat = flat * Us[k].shape[1] + mdim[k]
+    mflat, order = torch.sort(flat)
+    lam_top = lam_top[order]
+    mdim = [m[order] for m in mdim]
+    sel = [U[:, m] for U, m in zip(Us, mdim)]
+    lam_n, Un, inv_root = _orth_eig(_kr_gram(sel, lam_top, mask_flat))
+    q = KronRoot(Us=tuple(Us), mflat=mflat, rl=lam_top.sqrt(),
+                 C=Un * inv_root[None, :], mask=mask_flat)
+    return q, lam_n, Un, (lam_top, Us, mdim, sel)
+
+
+# --------------------------------------------------------------------------
+# conjugate gradients
+# --------------------------------------------------------------------------
+
+def batched_pcg(mvm, pinv, B, iters, return_iters=False, vec_axis=0):
+    """Preconditioned CG for A X = B, all columns at once
+    (gpim_tpu/ops/ski.py:698-799): returns (X, t_diags, t_offs[, realized
+    iterations]). ``vec_axis`` 0: B is (n, b), a solution per column; 1:
+    B is (b, n) batch-first, a solution per row (mvm and pinv take the same
+    layout).
+
+    Converged columns freeze: their state stops and their remaining
+    tridiagonal rows stay the preallocated identity block (t_diag = 1,
+    t_off = 0), which contributes exactly 0 to the SLQ quadrature. The
+    tridiagonals (iters, b) are the Lanczos matrices of the preconditioned
+    operator.
+
+    ``iters`` is a cap: ``gpim_tpu``'s while_loop stops once every column
+    is frozen. Here the host reads that only every
+    ``CG_EXIT_CHECK_EVERY`` iterations; an iteration after every column froze writes alpha = 0,
+    beta = 0, t_diag = 1 and t_off = 0, so X, R, P and the tridiagonals do
+    not change and the outputs are those of an exit test every iteration.
+    The realized count (the while_loop's trip count) is counted on the
+    device: one for each iteration that began with a live column.
+    """
+    if vec_axis == 0:
+        out = batched_pcg(lambda v: mvm(v.mT).mT, lambda r: pinv(r.mT).mT,
+                          B.mT, iters, return_iters, 1)
+        return (out[0].mT,) + tuple(out[1:])
+    X = torch.zeros_like(B)
+    R = B
+    Z = pinv(R)
+    P = Z
+    rz = (R * Z).sum(1)
+    rs0 = (R * R).sum(1)
+    eps = torch.finfo(B.dtype).eps
+    tol = rs0.clamp_min(1e-30) * (100.0 * eps) ** 2
+    b = B.shape[0]
+    Td = B.new_ones((iters, b))
+    To = B.new_zeros((iters, b))
+    alpha_prev = torch.ones_like(rz)
+    beta_prev = torch.zeros_like(rz)
+    done = rs0 < tol
+    k_real = torch.zeros((), dtype=torch.int64, device=B.device)
+    zero, one = torch.zeros_like(rz), torch.ones_like(rz)
+    for k in range(iters):
+        if k and k % CG_EXIT_CHECK_EVERY == 0 and bool(done.all()):
+            break
+        live = ~done
+        k_real += live.any()
+        AP = mvm(P)
+        denom = (P * AP).sum(1)
+        pos = denom > 0
+        alpha = torch.where(live & pos, rz / torch.where(pos, denom, one),
+                            zero)
+        X = X + alpha[:, None] * P
+        R = R - alpha[:, None] * AP
+        Z = pinv(R)
+        rz_new = (R * Z).sum(1)
+        rs_new = (R * R).sum(1)
+        beta = torch.where(live, rz_new / torch.where(rz > 0, rz, one), zero)
+        P = torch.where(live[:, None], Z + beta[:, None] * P, P)
+        safe_alpha = torch.where(alpha > 0, alpha, one)
+        safe_alpha_prev = torch.where(alpha_prev > 0, alpha_prev, one)
+        done_new = done | (rs_new < tol) | ~pos | (rz_new <= 0)
+        Td[k] = torch.where(live, 1.0 / safe_alpha
+                            + beta_prev / safe_alpha_prev, one)
+        To[k] = torch.where(live & ~done_new,
+                            beta.clamp_min(0.0).sqrt() / safe_alpha, zero)
+        rz, alpha_prev, beta_prev, done = rz_new, alpha, beta, done_new
+    if return_iters:
+        return X, Td, To, k_real
+    return X, Td, To
+
+
+def batched_cg(mvm, B, iters, vec_axis=0, return_iters=False):
+    """Unpreconditioned :func:`batched_pcg` (same frozen-column contract)."""
+    return batched_pcg(mvm, lambda r: r, B, iters, vec_axis=vec_axis,
+                       return_iters=return_iters)
+
+
+def split_pcg(mvm, pisqrt, B, iters, return_iters=False, vec_axis=0):
+    """Split-preconditioned CG for A X = B: plain CG on
+    P^-1/2 A P^-1/2 from P^-1/2 B, mapped back by P^-1/2. Same outputs as
+    :func:`batched_pcg`; mvm and pisqrt share ``vec_axis``'s layout."""
+    out = batched_pcg(lambda v: pisqrt(mvm(pisqrt(v))), lambda r: r,
+                      pisqrt(B), iters, return_iters=return_iters,
+                      vec_axis=vec_axis)
+    return (pisqrt(out[0]),) + tuple(out[1:])
+
+
+def _slq_from_tridiag(t_diags, t_offs, probe_sqnorms):
+    """sum_i |z_i|^2 e1^T log(T_i) e1 / p over the probes' tridiagonals
+    (columns of t_diags / t_offs), one batched ``eigh`` of the (p, m, m)
+    matrices on the host (the CPU's LAPACK takes ~0.1 ms where the card's
+    batched Jacobi takes milliseconds and waits for the device all the
+    same); the result comes back on the tridiagonals' device. Pass only
+    the rows that CG reached (:func:`batched_pcg`'s realized count): the
+    identity tail beyond them is decoupled from e1 and adds exactly 0."""
+    d = t_diags.mT.cpu()
+    o = t_offs.mT[:, :-1].cpu()
+    T = torch.diag_embed(d) + torch.diag_embed(o, 1) + torch.diag_embed(o, -1)
+    lam, U = torch.linalg.eigh(T)
+    vals = probe_sqnorms.cpu() * (U[:, 0, :] ** 2
+                                  * torch.log(lam.clamp_min(1e-30))).sum(1)
+    return vals.mean().to(t_diags.device)
+
+
+# --------------------------------------------------------------------------
+# marginal likelihood with trace-estimated gradients
+# --------------------------------------------------------------------------
+
+class _SKIMLL(torch.autograd.Function):
+    """0.5 yc^T A^-1 yc + 0.5 logdet A (and the realized CG iterations)
+    for A = mvm(factors, noise_pj, .); see :func:`ski_mll_from_mvm`."""
+
+    @staticmethod
+    def forward(ctx, mvm, cg_iters, g0, Q, lam_n, noise_pj, yc, *factors):
+        pisqrt, logdetP = split_apply(Q, lam_n, noise_pj, vec_axis=1)
+        B = torch.cat([pisqrt(yc[None, :]), g0])
+        Xt, t_diags, t_offs, k_real = batched_cg(
+            lambda v: pisqrt(mvm(factors, noise_pj, pisqrt(v))), B,
+            cg_iters, vec_axis=1, return_iters=True)
+        X = pisqrt(Xt)
+        alpha, solves = X[0], X[1:]                  # A^-1 yc, A^-1 z_i
+        w = pisqrt(g0)                               # P^-1 z = P^-1/2 z~
+        reached = int(k_real)          # rows beyond it are the identity
+        logdet = logdetP + _slq_from_tridiag(
+            t_diags[:reached, 1:], t_offs[:reached, 1:], (g0 * g0).sum(1))
+        out = 0.5 * torch.dot(yc, alpha) + 0.5 * logdet
+        ctx.mvm = mvm
+        ctx.save_for_backward(noise_pj, alpha, solves, w, *factors)
+        iters = k_real.to(out.dtype)
+        ctx.mark_non_differentiable(iters)
+        return out, iters
+
+    @staticmethod
+    def backward(ctx, g, _g_iters):
+        noise_pj, alpha, solves, w, *factors = ctx.saved_tensors
+        # d quad = -0.5 a^T (dA) a;  d logdet = tr(A^-1 dA) ~= (1/p) sum_i
+        # s_i^T (dA) w_i with s_i = A^-1 z_i, w_i = P^-1 z_i: the surrogate
+        # below has these derivatives in the factors and the noise, and
+        # autograd carries them on through the kernel build
+        with torch.enable_grad():
+            fs = [f.detach().requires_grad_(True) for f in factors]
+            nz = noise_pj.detach().requires_grad_(True)
+            Av = ctx.mvm(fs, nz, torch.cat([alpha[None, :], w]))
+            surrogate = (-0.5 * torch.dot(alpha, Av[0])
+                         + 0.5 * (solves * Av[1:]).sum() / solves.shape[0])
+            grads = torch.autograd.grad(surrogate, [nz] + fs)
+        return (None, None, None, None, None, g * grads[0], g * alpha,
+                *(g * gf for gf in grads[1:]))
+
+
+def ski_mll_from_mvm(mvm, cg_iters, g0, return_iters=False, warm_start=False):
+    """Returns core(factors, noise_pj, yc, Q, lam_n) = 0.5 yc^T A^-1 yc +
+    0.5 logdet A for A = mvm(factors, noise_pj, .), batch-first (the mvm
+    takes (b, G) blocks), with split-preconditioned CG solves, the SLQ
+    log-determinant and trace-estimated gradients (the BBMM estimator,
+    gpim_tpu/ops/ski.py:852-1057).
+
+    ``(Q, lam_n)`` is the orthonormal Nystrom form of the preconditioner
+    P = noise I + Q diag(lam_n) Q^T (:func:`mgrid_split_root`). It may be
+    stale: every estimator is exact in expectation for any SPD P, so
+    staleness costs only CG iterations; no gradient flows into it. ``g0``
+    (p, G) are the probes z~ of the split operator with E[z~ z~^T] = I:
+    logdet A = logdet P + E[SLQ of P^-1/2 A P^-1/2]. The gradient of the
+    log-determinant is (1/p) sum_i s_i^T (dA) w_i with s_i = A^-1 z_i and
+    w_i = P^-1 z_i, unbiased without differentiating the preconditioner.
+
+    Gradients flow to ``factors``, ``noise_pj`` and ``yc`` (as g alpha);
+    build the factors with autograd on and they reach the lengthscales and
+    the variance through the kernel build. With ``return_iters`` the core
+    returns (loss, realized CG iterations as a float tensor, which takes no
+    gradient).
+    """
+    if warm_start:
+        raise NotImplementedError(
+            "warm-started CG (gpim_tpu/ops/ski.py:985-1042, experimental "
+            "there) is not ported to gpim_tpu_torch yet")
+
+    def core(factors, noise_pj, yc, Q, lam_n):
+        out, iters = _SKIMLL.apply(mvm, cg_iters, g0, Q, lam_n, noise_pj,
+                                   yc, *factors)
+        return (out, iters) if return_iters else out
+    return core
+
+
+# --------------------------------------------------------------------------
+# prediction on the masked lattice
+# --------------------------------------------------------------------------
+
+def _kr_block(sel, i, tb):
+    """Rows i .. i + tb of the leading axis of KR(sel): (tb * rest, r)."""
+    r = sel[0].shape[1]
+    cols = sel[0][i:i + tb, None, :]
+    for s in sel[1:]:
+        cols = (cols[:, :, None, :] * s[None, None, :, :]).reshape(
+            cols.shape[0], -1, r)
+    return cols.reshape(-1, r)
+
+
+def grid_kr_rows(sel, lam_top, mask_flat=None):
+    """The (prod m_k, rank) Kronecker eigen-root on a grid: row
+    (i_1..i_d) of column m is prod_k sel[k][i_k, m] sqrt(lam_m), masked by
+    ``mask_flat`` if given."""
+    out = _kr_block(sel, 0, sel[0].shape[0]) * lam_top.sqrt()
+    return out if mask_flat is None else out * mask_flat[:, None]
+
+
+def grid_nystrom_var(sel, Bmat, kss):
+    """Nystrom predictive variance over a Cartesian test grid:
+    kss - row_norms^2(Lt Bmat), with Lt's rows built a block of the leading
+    axis at a time (the whole (M, rank) Lt is never held). ``Bmat``
+    (rank, rank) carries the sqrt(lam) scaling and the Nystrom rotation
+    (:func:`_nystrom_bmat`)."""
+    rest = math.prod(s.shape[0] for s in sel[1:])
+    tb = max(1, _BLOCK_BYTES // (Bmat.element_size() * rest
+                                 * Bmat.shape[0]))
+    sq = torch.cat([(_kr_block(sel, i, tb) @ Bmat).square().sum(1)
+                    for i in range(0, sel[0].shape[0], tb)])
+    return (kss - sq).clamp_min(0.0)
+
+
+def _nystrom_bmat(lam_top, noise_pj, lam_n, Un):
+    """Nystrom rotation: with K_UU ~= U_r Lam U_r^T and A ~= Lp Lp^T +
+    noise I, diag(K_* A^-1 K_*^T) is row_norms^2 of Lt Bmat with
+    Lt = C U_r (the test-side root before its Lam^-1/2) and
+    Bmat = Lam^-1/2 Un sqrt(lam_n / (lam_n + noise)), where
+    Lp^T Lp = Un lam_n Un^T."""
+    scale = (lam_n / (lam_n + noise_pj)).sqrt()
+    inv_root = lam_top.clamp_min(1e-12 * lam_top.max()).rsqrt()
+    return inv_root[:, None] * (Un * scale[None, :])
+
+
+def kernel_self_diag(kernel, p, n, dtype):
+    """k(x, x) of the product-form grid kernels: the variance (each 1D
+    factor is 1 at zero distance for every supported family)."""
+    del kernel
+    return torch.ones(n, dtype=dtype, device=p["variance"].device) \
+        * p["variance"]
+
+
+def mgrid_solve_core(kernel, p, grids, grid_shape, mask_flat, rank,
+                     cg_iters, noise_pj, yc_flat):
+    """The predict-time solve of the masked lattice: split-preconditioned
+    CG for alpha = A^-1 yc on the factored basis, uncapped mode selection
+    (the Nystrom variance uses this eigenspace with no CG behind it), and
+    the Nystrom rotation. Returns (alpha masked and grid-shaped, Bmat,
+    sel). The kernel factors are built once, for the basis and every mvm."""
+    factors = grid_kernel_factors(kernel, p, grids)
+    mvm = make_masked_grid_mvm(grid_shape, mask_flat, batch_first=True)
+    Qs, lam_n, Un, (lam_top, _, _, sel) = mgrid_split_root(
+        factors, mask_flat, rank, dim_cap=None)
+    pisqrt, _ = split_apply(Qs, lam_n, noise_pj, vec_axis=1)
+    alpha, _, _ = split_pcg(lambda v: mvm(factors, noise_pj, v), pisqrt,
+                            yc_flat[None, :], cg_iters, vec_axis=1)
+    am = (alpha[0] * mask_flat).reshape(tuple(grid_shape))
+    return am, _nystrom_bmat(lam_top, noise_pj, lam_n, Un), sel
+
+
+def make_grid_predictor(kernel, grids, grid_shape, cg_iters, precond_rank):
+    """Returns predict(p, noise_pj, mask_flat, yc_flat, t_axes, kss) ->
+    (mean, var) over the Cartesian test grid of per-dim axes ``t_axes``:
+    mean = (x)_k C_k (M alpha) with the exact cross-covariances C_k, var
+    the Nystrom extension of the eigen-root that preconditions the solve
+    (without the observation noise)."""
+    def predict(p, noise_pj, mask_flat, yc_flat, t_axes, kss):
+        am, Bmat, sel = mgrid_solve_core(
+            kernel, p, grids, grid_shape, mask_flat, precond_rank,
+            cg_iters, noise_pj, yc_flat)
+        C_list = grid_cross_factors(kernel, p, grids, t_axes)
+        mean = modeprod(C_list, am).reshape(-1)
+        var = grid_nystrom_var([C @ s for C, s in zip(C_list, sel)], Bmat,
+                               kss)
+        return mean, var
+    return predict
+
+
+def mgrid_exact_var_probe(kernel, p, grids, grid_shape, mask_flat,
+                          noise_pj, cells, cg_iters=256, rank=1024):
+    """Exact posterior variance at a few lattice cells, by CG: the check of
+    the rank-truncated Nystrom variance. For cell c, var_c = k(c, c) -
+    (M k_c)^T A^-1 (M k_c), with k_c = K[:, c] a Kronecker column; the
+    masked rows decouple exactly, so this is the dense posterior variance
+    of the observed points. One batched split-CG solve; ``cells`` (n_c, d)
+    integer grid indices; returns (n_c,) without the noise term."""
+    factors = grid_kernel_factors(kernel, p, grids)
+    cells = np.asarray(cells)
+    n_c = cells.shape[0]
+    cols = None
+    for k, f in enumerate(factors):
+        idx = torch.as_tensor(cells[:, k], device=f.device)
+        fk = f.index_select(1, idx).mT                # (n_c, g_k)
+        cols = fk if cols is None else (cols[:, :, None]
+                                        * fk[:, None, :]).reshape(n_c, -1)
+    kss = kernel_self_diag(kernel, p, n_c, cols.dtype)
+    B = cols * mask_flat
+    mvm = make_masked_grid_mvm(grid_shape, mask_flat, batch_first=True)
+    Qs, lam_n, _, _ = mgrid_split_root(factors, mask_flat, rank,
+                                       dim_cap=None)
+    pisqrt, _ = split_apply(Qs, lam_n, noise_pj, vec_axis=1)
+    X, _, _ = split_pcg(lambda v: mvm(factors, noise_pj, v), pisqrt, B,
+                        cg_iters, vec_axis=1)
+    return (kss - (B * X).sum(1)).clamp_min(0.0)

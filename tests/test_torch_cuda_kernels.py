@@ -665,3 +665,105 @@ def test_spectral_loss_and_gradient_cuda_vs_cpu(dev):
             u[k].grad.cpu() for k in u0]
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12)
+
+
+# --------------------------------------------------------------------------
+# The masked-lattice slice: K1 at its factor shapes (d = 1), the masked
+# operator, the split solve and the SKI loss card against CPU
+# --------------------------------------------------------------------------
+
+# ski_masked64x64x32, mgrid_masked128x128x64 and mgrid_masked256x256x64:
+# each factor (G, G), and predict's cross factors on the same grid
+MGRID_SHAPES = [(32, 32), (64, 64), (128, 128), (256, 256)]
+
+
+@cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n, m", MGRID_SHAPES)
+def test_sqdist_at_the_masked_lattice_shapes(dev, dtype, n, m):
+    g = torch.arange(m, dtype=dtype, device=dev)[:, None] / 12.0
+    out = gk.sqdist(g[:n], g)
+    _close(out, gk.sqdist_plain(g[:n].double(), g.double()),
+           float(m - 1) ** 2 / 144.0, dtype)
+    assert (torch.diagonal(out) == 0).all()
+
+
+def _mgrid_problem(rng, gshape=(12, 10, 7)):
+    axes = [np.arange(g, dtype=float) for g in gshape]
+    mask = (rng.rand(int(np.prod(gshape))) < 0.6).astype(float)
+    y = rng.rand(mask.size) * mask
+    u = {"lengthscale": np.array([0.3, -0.2, 0.1]),
+         "outputscale": np.asarray(0.2), "noise": np.asarray(-2.0),
+         "mean": np.asarray(0.4)}
+    bounds = {"ls_lo": np.zeros(3), "ls_hi": np.full(3, 5.0)}
+    g0 = np.random.default_rng(0).choice([-1.0, 1.0], size=(8, mask.size))
+    return gshape, axes, mask, y, u, bounds, g0
+
+
+@cuda
+@pytest.mark.parametrize("kernel", ["RBF", "Matern52"])
+def test_masked_lattice_loss_and_gradient_cuda_vs_cpu(dev, kernel):
+    """The masked-lattice SKI loss (the factored preconditioner, split CG,
+    SLQ, the surrogate backward; one K1 launch a factor) and its gradient,
+    card against CPU, f64, with the same realized CG iterations."""
+    from gpim_tpu_torch.gpreg import mgrid_model
+    gshape, axes, mask, y, u0, bounds, g0 = _mgrid_problem(
+        np.random.RandomState(19))
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        u = {k: t(v).requires_grad_(True) for k, v in u0.items()}
+        tb = {k: t(v) for k, v in bounds.items()}
+        taxes = [t(a) for a in axes]
+        Qp, lam = mgrid_model._build_precond(u, taxes, t(mask), tb,
+                                             kernel=kernel, rank=100)
+        before = gk.sqdist.launches
+        loss, it = mgrid_model._loss(
+            u, taxes, t(mask), t(g0), Qp, lam, t(y), tb, 1e-5,
+            kernel=kernel, grid_shape=gshape, cg_iters=60,
+            record_iters=True)
+        loss.backward()
+        if device.type == "cuda":
+            assert gk.sqdist.launches - before == len(axes)
+        out[device.type] = [loss.detach().cpu(), it.cpu()] + [
+            u[k].grad.cpu() for k in u0]
+    assert float(out["cuda"][1]) == float(out["cpu"][1])
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12)
+
+
+@cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_masked_operator_and_split_solve_cuda_vs_cpu(dev, dtype):
+    """The masked mvm in both layouts and the split-preconditioned solve on
+    the factored basis, card against CPU."""
+    from gpim_tpu_torch.ops import ski
+    gshape, axes, mask, y, _, _, _ = _mgrid_problem(
+        np.random.RandomState(20))
+    V = np.random.RandomState(21).randn(3, mask.size)
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        t = lambda a: torch.as_tensor(a, dtype=dtype,  # noqa: E731
+                                      device=device)
+        p = {"lengthscale": t([2.0, 1.5, 1.2]), "variance": t(1.3)}
+        factors = ski.grid_kernel_factors("RBF", p, [t(a) for a in axes])
+        noise = t(0.05)
+        bf = ski.make_masked_grid_mvm(gshape, t(mask), batch_first=True)
+        col = ski.make_masked_grid_mvm(gshape, t(mask))
+        q, lam, _, _ = ski.mgrid_split_root(factors, t(mask), 100)
+        pis, _ = ski.split_apply(q, lam, noise, vec_axis=1)
+        X, _, _, k = ski.split_pcg(lambda v: bf(factors, noise, v), pis,
+                                   t(V), 100, return_iters=True, vec_axis=1)
+        out[device.type] = [bf(factors, noise, t(V)).cpu(),
+                            col(factors, noise, t(V.T)).mT.cpu(), X.cpu()]
+        torch.testing.assert_close(out[device.type][0],
+                                   out[device.type][1])
+    f64 = dtype == torch.float64
+    for a, b in zip(out["cuda"][:2], out["cpu"][:2]):
+        torch.testing.assert_close(a, b, rtol=1e-12 if f64 else 1e-5,
+                                   atol=1e-12 if f64 else 1e-5)
+    # CG stops at a relative residual of 100 eps: in float32 the two
+    # solutions agree to that times the split operator's condition number
+    X, Xc = out["cuda"][2], out["cpu"][2]
+    scale = float(Xc.abs().max())
+    assert float((X - Xc).abs().max()) <= (1e-9 if f64 else 2e-3) * scale

@@ -7,7 +7,7 @@ run() on every ported route (dense RBF and Matern52, spectral, exact
 Kronecker on a small full grid with ski_min_points lowered: trajectories,
 losses, mean and sd at rtol 1e-6 in float64 and 1e-3 in float32),
 checkpoints read across packages both ways, the no-Xtest warning, NaN test
-rows, step() and the options that raise.
+rows, step(), the options that raise and the masked-lattice routing.
 """
 
 import numpy as np
@@ -329,19 +329,38 @@ def test_update_data_across_routes_keeps_the_time_series():
     assert np.isfinite(mean).all() and np.isfinite(sd).all()
 
 
-@pytest.mark.parametrize("kwargs, match", [
-    (dict(mesh=True), "mesh= is not ported yet"),
-    (dict(kernel="RationalQuadratic"), "RBF, Matern52, Spectral"),
-    (dict(ski_min_points=256), "masked-lattice or off-lattice SKI route"),
+def _off_lattice(X):
+    """The sparse grid with its coordinates bent off any uniform lattice."""
+    X = X.copy()
+    X[0] = X[0] ** 1.2
+    return X
+
+
+@pytest.mark.parametrize("kwargs, coords, match", [
+    (dict(mesh=True), None, "mesh= is not ported yet"),
+    (dict(kernel="RationalQuadratic"), None, "RBF, Matern52, Spectral"),
+    (dict(ski_min_points=256, lattice=False), None,
+     r"\(lattice=False\) takes the off-lattice SKI route"),
+    (dict(ski_min_points=256), _off_lattice, "off-lattice SKI route"),
+    (dict(ski_min_points=256), None, None),
 ])
-def test_unported_routes_and_options_raise(kwargs, match):
-    """The masked-lattice SKI route (ski=True on a large NaN-masked grid)
-    and mesh= raise when the model is built."""
+def test_unported_routes_and_options_raise(kwargs, coords, match):
+    """The off-lattice SKI route (ski=True on large data off a uniform
+    lattice, or with lattice=False) and mesh= raise when the model is
+    built; a large NaN-masked lattice takes the masked-lattice route."""
     R = _grid_data()
     R[np.random.RandomState(2).rand(*R.shape) < 0.3] = np.nan
+    X = jutils.get_sparse_grid(R)
+    if coords is not None:
+        X = coords(X)
+    if match is None:
+        m = gpim_tpu_torch.skreconstructor(X, R, verbose=0, use_gpu=False,
+                                           **kwargs)
+        assert m._mgrid_engine is not None and m._kron_engine is None
+        return
     with pytest.raises(NotImplementedError, match=match):
-        gpim_tpu_torch.skreconstructor(jutils.get_sparse_grid(R), R,
-                                       verbose=0, use_gpu=False, **kwargs)
+        gpim_tpu_torch.skreconstructor(X, R, verbose=0, use_gpu=False,
+                                       **kwargs)
 
 
 def test_default_device_is_the_card_and_raises_without_one(monkeypatch):
