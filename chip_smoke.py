@@ -19,9 +19,11 @@ its final line):
              VFE path (Kmn, Kmm, one predict chunk's Ks) and at the six of
              the ckpfm4d Kronecker path (d = 1: the factors 10 x 10,
              64 x 64, 5 x 5 and a predict chunk's cross rows 4096 x 10,
-             4096 x 64, 4096 x 5) and the four of the masked-lattice rows
+             4096 x 64, 4096 x 5), the four of the masked-lattice rows
              (d = 1: the factors 128 x 128, 64 x 64, 32 x 32 and
-             256 x 256), with the tolerances below;
+             256 x 256) and the two of the off-lattice rows (d = 1: the
+             inducing-grid factors 36 x 36 and 70 x 70), with the
+             tolerances below;
              float32 device time per call of each kernel, its plain version
              and (K1) torch.cdist, beside the kernel's bound: K2 and K3 from
              a warm loop of launches (_time_ms), K1 from a CUDA graph of
@@ -107,16 +109,36 @@ its final line):
              its code implies (d (steps + segments + 2)); the masked mvm
              in both layouts and P^-1/2 timed at the 1M shape; small
              masked problems card against CPU in float64.
-11. profile - torch.profiler over PROFILE_STEPS warm float32 training steps
+11. ski     - skreconstructor, built without use_gpu, on its off-lattice
+             SKI route (lattice=False: grid interpolation, RBF, learning
+             rate 0.1, float32): ski_offlattice64x64x32 (the cube of
+             ski_masked64x64x32, 39,328 points on a 36^3 inducing grid,
+             30 iterations) cold, then warm twice (the largest difference
+             between the two warm runs printed: W^T's index_add_ sums in
+             no fixed order on the card), with rmse_vs_truth < 0.75 data
+             sd beside the masked-lattice route's on the same cube, and in
+             float64 against float32 (OFFLATTICE_CROSS_TOL);
+             ski_offlattice128x128x64 (the 1M analytic cube of
+             mgrid_masked128x128x64, 314,624 points on a 70^3 grid, 10
+             iterations) once, finite, its rmse and peak memory recorded,
+             the operator and P^-1/2 at the CG block width timed beside the
+             operator's bound; each run's realized CG iterations, segments
+             and K1 launches against what its code implies (d (steps +
+             segments + 1)); small problems on random 2D and 3D
+             coordinates (9216 rows) card against CPU in float64, on both
+             variance paths (Nystrom; Lanczos at precond_rank=0) and with
+             max_root.
+12. profile - torch.profiler over PROFILE_STEPS warm float32 training steps
              of the flagship, of the VFE run, of ckpfm4d and of the
              spectral row, MULTI_PROFILE_STEPS of eels6, eels64 and eels6
-             correlated, MGRID_PROFILE_STEPS of mgrid_masked128x128x64,
-             and over one warm BO step (refit, predict,
-             acquisition, ranking) of bo25 EI (float32) and of the spiral
-             run (float64): device ms by kernel, the device's idle share,
-             the host's synchronising calls a step and (ckpfm4d) the host
-             time of eigh (printed; a profiler that records no device time
-             prints "not measured" and fails nothing).
+             correlated, MGRID_PROFILE_STEPS of mgrid_masked128x128x64 and
+             of ski_offlattice64x64x32, and over one warm BO step (refit,
+             predict, acquisition, ranking) of bo25 EI (float32) and of
+             the spiral run (float64): device ms by kernel, the device's
+             idle share, the host's synchronising calls a step and
+             (ckpfm4d) the host time of eigh (printed; a profiler that
+             records no device time prints "not measured" and fails
+             nothing).
 
 Prints the kernels as one JSON line, then as its last line
 {"ok": true, "device": {...}}.
@@ -250,6 +272,21 @@ MGRID_PROFILE_STEPS = 3
 # Each limit is about ten times its measured gap.
 MGRID_CROSS_TOL = {"mean_atol": 7e-4, "sd_atol": 5e-5, "ls_rtol": 1.2e-3,
                    "noise_rtol": 2e-6}
+# The off-lattice rows: the cube of ski_masked64x64x32 and the 1M analytic
+# cube of mgrid_masked128x128x64 through skreconstructor(lattice=False),
+# the grid-interpolation route (choose_grid: 36^3 and 70^3 inducing
+# points), RBF at learning rate 0.1, float32: (shape, iterations).
+OFFLATTICE = dict(kernel="RBF", ski=True, lattice=False, learning_rate=0.1)
+OFFLATTICE_ROWS = {"ski_offlattice64x64x32": ((64, 64, 32), 30),
+                   "ski_offlattice128x128x64": ((128, 128, 64), 10)}
+# ski_offlattice64x64x32 in float32 against float64 at the float32 jitter.
+# Measured on an H100 (the first run of this phase, with MGRID_CROSS_TOL's
+# limits): mean 4.5e-5, sd 1.6e-5, lengthscale 7.8e-5 and noise 8.0e-7
+# apart (relative for the last two), while two float32 runs differ by up
+# to 3.9e-5 in the mean (index_add_'s atomics). Each limit is about ten
+# times its measured gap.
+OFFLATTICE_CROSS_TOL = {"mean_atol": 5e-4, "sd_atol": 2e-4,
+                        "ls_rtol": 8e-4, "noise_rtol": 8e-6}
 
 
 def log(msg):
@@ -584,6 +621,22 @@ def _mgrid_k1_inputs(dtype):
     return out
 
 
+def _ski_k1_inputs(dtype):
+    """K1's operand pairs on the off-lattice rows, one feature each: the
+    first axis of each inducing grid (choose_grid over the 64 and 128
+    cells of that axis: 36 and 70 points, one step of padding at each end)
+    against itself, at a trained lengthscale."""
+    import torch
+    out = []
+    for cells, g in ((64, 34), (128, 68)):
+        step = (cells - 1) / (g - 1)
+        a = torch.as_tensor(np.linspace(-step, cells - 1 + step, g + 2)
+                            [:, None] / MGRID_LS, dtype=dtype, device="cuda")
+        i = torch.arange(g + 2, device="cuda")
+        out.append(("factor %d" % (g + 2), a, a, (i, i)))
+    return out
+
+
 def _bo_kernel_inputs(dtype):
     """The operands the BO paths give the kernels, from the bo25 target at
     lengthscales of a trained model (3.7 and 4.3 px, which no binary
@@ -874,6 +927,12 @@ def phase_kernels(R, X, X_full, vfe, eels64, ckpfm):
             log("[kernels]   sqdist masked lattice %s, d = 1" % label)
             rec["sqdist"]["mgrid_shapes"][label] = _sqdist_case(
                 A, B, zeros, dname, timed)
+        # K1 at the off-lattice rows' one-feature inducing-grid factors
+        rec["sqdist"]["ski_shapes"] = {}
+        for label, A, B, zeros in _ski_k1_inputs(dtype):
+            log("[kernels]   sqdist off-lattice %s, d = 1" % label)
+            rec["sqdist"]["ski_shapes"][label] = _sqdist_case(
+                A, B, zeros, dname, timed)
         del A1, A, B
 
         # K2 at the training system shape, all three kernel families
@@ -945,6 +1004,8 @@ def phase_kernels(R, X, X_full, vfe, eels64, ckpfm):
         show("sqdist ckpfm4d " + label, r)
     for label, r in report["float32"]["sqdist"]["mgrid_shapes"].items():
         show("sqdist mgrid " + label, r)
+    for label, r in report["float32"]["sqdist"]["ski_shapes"].items():
+        show("sqdist off-lattice " + label, r)
     for name, r in report["float32"].items():
         show(name + " eels64", r["batched_shapes"]["eels64"],
              MULTI_TIMING_REPS)
@@ -1729,7 +1790,11 @@ def _sk_expected(model, n_test):
     segment (the preconditioner's rebuild), and in predict once an axis
     for the solve's factors and once an axis for the cross factors of a
     Cartesian test grid (or once an axis a chunk of scattered points):
-    d (steps + S + 2) for a grid. Dense (the multi-output engine at one
+    d (steps + S + 2) for a grid. Off-lattice (d axes, S segments): K1
+    once an axis each Adam step and each segment, and once an axis in
+    predict (the factors serve the solve, the eigen-root and the mean):
+    d (steps + S + 1); at precond_rank 0 no segment builds a
+    preconditioner, d (steps + 1). Dense (the multi-output engine at one
     task): K2 each Adam step, K3 too for RBF, K1 each step for Matern52
     (its backward's distances), and in predict K1 for the Gram and once a
     chunk. Spectral: none."""
@@ -1747,6 +1812,12 @@ def _sk_expected(model, n_test):
         predict = 2 * d if grid else d * (1 + -(-n_test // min(
             SK_CHUNK, max(128, n_test))))
         return {"sqdist": d * (steps + len(eng.last_segments)) + predict,
+                "masked_system": 0, "rbf_bwd_reductions": 0}
+    if model._ski_engine is not None:
+        eng = model._ski_engine
+        d = len(eng.grid_shape)
+        rebuilds = len(eng.last_segments) if eng.precond_rank > 0 else 0
+        return {"sqdist": d * (steps + rebuilds + 1),
                 "masked_system": 0, "rbf_bwd_reductions": 0}
     if model._kron_engine is not None:
         d = len(model._kron_engine.dims)
@@ -1778,14 +1849,15 @@ def _run_sk(label, R, X, Xt, **kwargs):
     rmse = float(np.sqrt(np.mean((mean[obs] - R[obs]) ** 2)))
     route = ("spectral" if model.kernel_type == "Spectral" else "kronecker"
              if model._kron_engine is not None else "masked-lattice"
-             if model._mgrid_engine is not None else "dense")
+             if model._mgrid_engine is not None else "off-lattice"
+             if model._ski_engine is not None else "dense")
     rec = {"train_s": ph["train"]["first_s"],
            "predict_s": ph["predict"]["first_s"], "total_s": total,
            "step_ms": 1e3 * ph["train"]["first_s"] / model.iterations,
            "rmse": rmse, "launches": launches, "route": route,
            "n_train": int(model._Xd.shape[0]), "dtype": str(model.dtype)}
-    if model._mgrid_engine is not None:
-        eng = model._mgrid_engine
+    eng = model._mgrid_engine or model._ski_engine
+    if eng is not None:
         rec["cg_iters"] = [int(i) for i in eng.last_cg_iters]
         rec["segments"] = eng.last_segments
         rec["precond_rank"] = eng.precond_rank
@@ -1816,6 +1888,10 @@ def _run_sk(label, R, X, Xt, **kwargs):
         if model._mgrid_engine is not None:
             eng = model._mgrid_engine
             tensors += eng._axes + [eng._mask, eng._y, eng._g0]
+        if model._ski_engine is not None:
+            eng = model._ski_engine
+            tensors += eng._grids + [eng._idx, eng._wgt, eng._i0, eng._w0,
+                                     eng._mask, eng._g0, eng._perm]
         if not all(t.is_cuda for t in tensors):
             raise AssertionError("%s: a tensor of an skreconstructor built "
                                  "without use_gpu is not on the card" % label)
@@ -2131,7 +2207,8 @@ def phase_mgrid():
     """The three masked-lattice rows of benchmarks/suite.py with their
     gates, ski_masked64x64x32 in float64 against float32, and small
     problems card against CPU in float64. Returns (the warm runs' launches
-    by path, the 1M row's warm model)."""
+    by path, the 1M row's warm model, ski_masked64x64x32's
+    rmse_vs_truth)."""
     import torch
     from gpim_tpu_torch import dtypes, utils
     paths, recs = {}, {}
@@ -2216,7 +2293,7 @@ def phase_mgrid():
             raise AssertionError("CUDA and CPU masked-lattice paths disagree "
                                  "on %s" % kernel)
     log("[mgrid] warm records: " + json.dumps(recs))
-    return paths, model_1m
+    return paths, model_1m, recs["ski_masked64x64x32"]["rmse_vs_truth"]
 
 
 def phase_mgrid_profile(model):
@@ -2226,6 +2303,252 @@ def phase_mgrid_profile(model):
     _report_profile("mgrid_masked128x128x64", "warm float32 training steps",
                     MGRID_PROFILE_STEPS, _profiled(model.train), host_ops=10,
                     host_keys=("aten::linalg_eigh",))
+
+
+# ---------------------------------------------------------------------------
+# the off-lattice SKI route (skreconstructor with lattice=False, or on
+# scattered points)
+# ---------------------------------------------------------------------------
+
+def scattered_data(shape, seed):
+    """Random coordinates shaped like a ``shape`` grid (each uniform over
+    its axis's range), a smooth surface on them with noise 0.02, 10% of
+    the points removed; returns (R, X, the full lattice of ``shape`` as
+    the test points)."""
+    from gpim_tpu_torch import utils
+    rng = np.random.RandomState(seed)
+    d = len(shape)
+    span = (np.asarray(shape, np.float64) - 1).reshape((d,) + (1,) * d)
+    X = rng.rand(d, *shape) * span
+    f = np.sin(X[0] / 5.0) * np.cos(X[1] / 7.0)
+    if d == 3:
+        f = f + 0.3 * np.sin(X[2] / 4.0)
+    R = f + 0.02 * rng.randn(*shape)
+    gone = rng.rand(*shape) < 0.1
+    R[gone] = np.nan
+    X[:, gone] = np.nan
+    return R, X, utils.get_full_grid(np.zeros(shape))
+
+
+def _run_offlattice(label, R, truth, iterations, **kwargs):
+    """One skreconstructor run of an off-lattice row (_run_sk: launches
+    against the code, shapes, NaNs, tensors on the card), which must take
+    the off-lattice route; adds rmse_vs_truth over the whole grid."""
+    from gpim_tpu_torch import utils
+    model, mean, sd, hp, rec = _run_sk(
+        label, R, utils.get_sparse_grid(R), utils.get_full_grid(R),
+        iterations=iterations, **dict(OFFLATTICE, **kwargs))
+    if model._ski_engine is None:
+        raise AssertionError("%s did not take the off-lattice route" % label)
+    eng = model._ski_engine
+    rec["rmse_vs_truth"] = float(np.sqrt(np.mean((mean - truth) ** 2)))
+    rec["data_sd"] = float(np.nanstd(R))
+    rec["n_obs"] = int((~np.isnan(R)).sum())
+    rec["grid_shape"] = list(eng.grid_shape)
+    log("[ski] %-27s inducing grid %s, n = %d (%d observed), rmse_vs_truth "
+        "%.5f, data sd %.4f" % (label, eng.grid_shape, rec["n_train"],
+                                rec["n_obs"], rec["rmse_vs_truth"],
+                                rec["data_sd"]))
+    return model, mean, sd, hp, rec
+
+
+def _time_offlattice_ops(model):
+    """The off-lattice CG's pieces at the model's shape, float32, device ms
+    a call (CUDA events around a warm loop): the operator on the (9, n)
+    block (and, for comparison, the same operator with its grid block in
+    the (b, G) layout) and P^-1/2 on the dense (n, r) basis; beside each
+    one's bound,
+    the larger of its bytes over the memory rate and its operations over
+    the f32 peak. The operator must read the block, the int64 corner
+    indices and the weights and write the result; it scatters and gathers
+    2^d corners a point (2 b n 2^d multiply-adds) and runs the d mode
+    products (2 b G sum_k g_k). P^-1/2 reads the basis and the block and
+    writes the result, 4 b n r operations."""
+    import torch
+    from gpim_tpu_torch.gpreg import ski_model
+    from gpim_tpu_torch.gpreg.multi import _constrain_task
+    from gpim_tpu_torch.ops import ski
+    eng = model._ski_engine
+    n, S = eng._idx.shape
+    G = int(np.prod(eng.grid_shape))
+    with torch.no_grad():
+        u = {k: v[0] for k, v in model.u.items()}
+        p = _constrain_task(u, model._bounds())
+        factors = ski.grid_kernel_factors(
+            "RBF", {"lengthscale": p["lengthscale"],
+                    "variance": p["variance"]}, eng._grids)
+        Qp, lam = ski_model._build_precond(
+            u, eng._grids, eng._i0, eng._w0, eng._mask, model._bounds(),
+            kernel="RBF", rank=eng.precond_rank)
+        noise = p["noise"] + model.jitter
+        pis, _ = ski.split_apply(Qp, lam, noise, vec_axis=1)
+        V = torch.randn(eng._g0.shape[0] + 1, n, device="cuda",
+                        dtype=eng._mask.dtype)
+        b, item = V.shape[0], V.element_size()
+        r = Qp.shape[1]
+        flat = eng._idx.reshape(-1)
+        gshape = tuple(eng.grid_shape)
+
+        def mvm_bf(v):
+            # the same operator with its grid block in the (b, G) layout:
+            # index_add_ and index_select along dim 1
+            u = v.new_zeros((b, G)).index_add_(
+                1, flat, (v[:, :, None] * eng._wgt).reshape(b, n * S))
+            t = ski.kron_mvm_bf(factors, u.reshape((b,) + gshape))
+            return (t.reshape(b, G).index_select(1, flat).reshape(b, n, S)
+                    * eng._wgt).sum(2) + noise * v
+        mvm = ski.make_interp_mvm(eng._idx, eng._wgt, eng.grid_shape)
+        ref = mvm(factors, noise, V)
+        err = float((mvm_bf(V) - ref).abs().max() / ref.abs().max())
+        if not err <= 1e-5:
+            raise AssertionError("the (b, G) operator disagrees: %.3e" % err)
+        out = {"mvm_ms": _time_ms(lambda: mvm(factors, noise, V), 20),
+               "mvm_bf_ms": _time_ms(lambda: mvm_bf(V), 20),
+               "pisqrt_ms": _time_ms(lambda: pis(V), 20)}
+        for key, nbytes, ops in (
+                ("mvm", (2 * b * n + n * S) * item + n * S * 8,
+                 4 * b * n * S + 2 * b * G * sum(eng.grid_shape)),
+                ("pisqrt", (2 * b * n + n * r) * item, 4 * b * n * r)):
+            t_bytes = nbytes / PEAK_BYTES_PER_S
+            t_ops = ops / PEAK_OPS_PER_S["float32"]
+            out[key + "_bound_ms"] = 1e3 * max(t_bytes, t_ops)
+            out[key + "_bound_by"] = ("bytes" if t_bytes >= t_ops
+                                      else "operations")
+    log("[ski] CG pieces at n = %d, G = %d, %d rows, float32: operator "
+        "%.4f ms with its (G, b) grid block, %.4f ms with a (b, G) one "
+        "(bound %.4f ms, %s), P^-1/2 %.4f ms (rank %d; bound %.4f ms, %s)"
+        % (n, G, b, out["mvm_ms"], out["mvm_bf_ms"], out["mvm_bound_ms"],
+            out["mvm_bound_by"], out["pisqrt_ms"], r,
+            out["pisqrt_bound_ms"], out["pisqrt_bound_by"]))
+    return out
+
+
+def _small_offlattice_checks():
+    """Random 2D and 3D coordinates, 9216 rows (>= ski_min_points), float64,
+    10 iterations: the card against the CPU, trajectories, mean and sd
+    within SMALL_RTOL, on the Nystrom variance path, on the Lanczos path
+    (precond_rank=0, CG to convergence) and after predict(max_root=48)."""
+    # Without the preconditioner CG needs ~160-210 iterations here: capped
+    # at the default 64 its iterate is so far from converged that a
+    # relative perturbation of 1e-14 moves the predictive mean by 1e-4
+    # (measured on the CPU), and the card and the CPU, whose sums round
+    # differently, would be compared on round-off. So that case lifts the
+    # cap.
+    cases = [("2D", (96, 96), {}),
+             ("2D Lanczos", (96, 96), {"precond_rank": 0,
+                                       "cg_iterations": 512}),
+             ("3D", (24, 24, 16), {})]
+    for name, shape, kw in cases:
+        R, X, Xt = scattered_data(shape, seed=len(shape))
+        out, models = {}, {}
+        for use_gpu in (True, False):
+            extra = {} if use_gpu else {"use_gpu": False}
+            m, mean, sd, hp, _ = _run_sk(
+                "small off-lattice %s %s" % (name, "card" if use_gpu
+                                             else "cpu"), R, X, Xt,
+                kernel="RBF", iterations=10, learning_rate=0.1,
+                precision="double", **kw, **extra)
+            if m._ski_engine is None:
+                raise AssertionError("small off-lattice %s did not take "
+                                     "the off-lattice route" % name)
+            out[use_gpu] = [mean, sd, hp["lengthscale"], hp["noise"]]
+            models[use_gpu] = m
+        if name == "3D":
+            for use_gpu, m in models.items():
+                out[use_gpu] += list(m.predict(max_root=48))
+        worst = max(float(np.max(np.abs(g - c)) / np.max(np.abs(c)))
+                    for g, c in zip(out[True], out[False]))
+        log("[cross-check] small off-lattice %s, CUDA vs CPU (f64): max "
+            "diff / max value %.3e (limit %.0e); CG iterations %s and %s"
+            % (name, worst, SMALL_RTOL,
+               models[True]._ski_engine.last_cg_iters.tolist(),
+               models[False]._ski_engine.last_cg_iters.tolist()))
+        if not worst <= SMALL_RTOL:
+            raise AssertionError("CUDA and CPU off-lattice paths disagree "
+                                 "on %s" % name)
+
+
+def phase_ski(mgrid64_rmse):
+    """The two off-lattice rows, ski_offlattice64x64x32 twice warm and in
+    float64 against float32, and small problems card against CPU in
+    float64. Returns (the warm runs' launches by path, the 64x64x32 row's
+    warm model)."""
+    import torch
+    from gpim_tpu_torch import dtypes
+    paths, recs = {}, {}
+
+    row = "ski_offlattice64x64x32"
+    R, truth = ski_masked_data()
+    iters = OFFLATTICE_ROWS[row][1]
+    _run_offlattice(row + " f32 cold", R, truth, iters)
+    torch.cuda.reset_peak_memory_stats()
+    m32, k32, s32, h32, rec = _run_offlattice(row + " f32 warm", R, truth,
+                                              iters)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    recs[row], paths[row] = rec, rec["launches"]
+    log("[ski] %-27s rmse_vs_truth %.5f; the masked-lattice route on the "
+        "same cube %.5f (phase mgrid); data sd %.4f; peak device memory "
+        "%.2f GiB" % (row, rec["rmse_vs_truth"], mgrid64_rmse,
+                      rec["data_sd"], rec["peak_gib"]))
+    # the suite's sanity gate of the masked row on the same cube
+    if not rec["rmse_vs_truth"] < 0.75 * rec["data_sd"]:
+        raise AssertionError("%s rmse_vs_truth %.4f >= 0.75 data sd"
+                             % (row, rec["rmse_vs_truth"]))
+    _, k32b, s32b, h32b, rec_b = _run_offlattice(row + " f32 warm again",
+                                                 R, truth, iters)
+    rerun = {"mean": float(np.abs(k32 - k32b).max()),
+             "sd": float(np.abs(s32 - s32b).max()),
+             "lengthscale": float(np.abs(h32["lengthscale"]
+                                         - h32b["lengthscale"]).max()),
+             "noise": float(np.abs(h32["noise"] - h32b["noise"]).max()),
+             "same_cg_iters": rec_b["cg_iters"] == rec["cg_iters"]}
+    rec["run_to_run"] = rerun
+    log("[ski] %s two warm runs, largest differences (index_add_'s "
+        "atomics): %s" % (row, json.dumps(rerun)))
+    _, k64, s64, h64, recs[row + "_f64"] = _run_offlattice(
+        row + " f64", R, truth, iters, precision="double",
+        jitter=dtypes.default_jitter(torch.float32))
+    diffs = {
+        "mean_atol": float(np.abs(k32 - k64).max()),
+        "sd_atol": float(np.abs(s32 - s64).max()),
+        "ls_rtol": float(np.max(np.abs(h32["lengthscale"][-1]
+                                       - h64["lengthscale"][-1])
+                                / np.abs(h64["lengthscale"][-1]))),
+        "noise_rtol": float(abs(h32["noise"][-1] - h64["noise"][-1])
+                            / abs(h64["noise"][-1])),
+    }
+    log("[cross-check] %s f32 vs f64: %s (limits %s)"
+        % (row, json.dumps(diffs), json.dumps(OFFLATTICE_CROSS_TOL)))
+    for k, lim in OFFLATTICE_CROSS_TOL.items():
+        if not diffs[k] <= lim:
+            raise AssertionError("%s f32 vs f64 %s %.3e > %.0e"
+                                 % (row, k, diffs[k], lim))
+
+    row = "ski_offlattice128x128x64"
+    shape, iters = OFFLATTICE_ROWS[row]
+    R, truth, _ = mgrid_data(shape)
+    torch.cuda.reset_peak_memory_stats()
+    model, _, _, _, rec = _run_offlattice(row + " f32", R, truth, iters)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("[ski] %-27s peak device memory %.2f GiB" % (row, rec["peak_gib"]))
+    rec["ops"] = _time_offlattice_ops(model)
+    recs[row], paths[row] = rec, rec["launches"]
+    del model
+    torch.cuda.empty_cache()
+
+    _small_offlattice_checks()
+    log("[ski] warm records: " + json.dumps(recs))
+    return paths, m32
+
+
+def phase_ski_profile(model):
+    """MGRID_PROFILE_STEPS warm float32 training steps of
+    ski_offlattice64x64x32 (with the preconditioner rebuilds the schedule
+    puts in them)."""
+    model.iterations = MGRID_PROFILE_STEPS
+    _report_profile("ski_offlattice64x64x32", "warm float32 training steps",
+                    MGRID_PROFILE_STEPS, _profiled(model.train), host_ops=10,
+                    host_keys=("aten::linalg_eigh", "aten::index_add_"))
 
 
 def kernel_records(kreport, paths):
@@ -2262,7 +2585,8 @@ def kernel_records(kreport, paths):
             label: {"shape": v["shape"], "max_abs_err": v["err"]}
             for label, v in r["bo_shapes"].items()}
         if name == "sqdist":
-            for key in ("vfe_shapes", "kron_shapes", "mgrid_shapes"):
+            for key in ("vfe_shapes", "kron_shapes", "mgrid_shapes",
+                        "ski_shapes"):
                 out[-1][key] = {
                     label: {"shape": v["shape"], "max_abs_err": v["err"],
                             "ms": v["ms"], "plain_ms": v["plain_ms"],
@@ -2289,17 +2613,20 @@ def main():
     bo_paths, bo25, spiral_bo = phase_bo(R, X, X_full)
     multi_paths = phase_multi(eels6, eels64)
     sk_paths = phase_sk(R, X, X_full, ckpfm)
-    mgrid_paths, model_1m = phase_mgrid()
+    mgrid_paths, model_1m, mgrid64_rmse = phase_mgrid()
+    ski_paths, model_ski = phase_ski(mgrid64_rmse)
     phase_profile("flagship", R, X, X_full, kernel="RBF")
     phase_profile("vfe", *vfe[:3], **VFE)
     phase_multi_profile(eels6, eels64)
     phase_sk_profile(R, X, X_full, ckpfm)
     phase_mgrid_profile(model_1m)
+    phase_ski_profile(model_ski)
     phase_bo_profile("bo25_ei_explore", bo25)
     phase_bo_profile("spiral_bo", spiral_bo)
     print(json.dumps({"kernels": kernel_records(
         kreport, {"flagship": launches, "vfe": vfe_launches, **bo_paths,
-                  **multi_paths, **sk_paths, **mgrid_paths})}),
+                  **multi_paths, **sk_paths, **mgrid_paths,
+                  **ski_paths})}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

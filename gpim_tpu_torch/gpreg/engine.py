@@ -49,6 +49,7 @@ __all__ = [
 _LOG_2PI = math.log(2.0 * math.pi)
 _SQRT5 = math.sqrt(5.0)
 _FAST_KERNELS = ("RBF", "Matern52", "RationalQuadratic")
+_MAX_SEGMENT = 10       # the SKI engines' longest segment between rebuilds
 
 
 # --------------------------------------------------------------------------
@@ -420,6 +421,55 @@ def adam_steps(loss_info, u0, lr, iterations, factors=("",)):
     if factors:
         _check_cholesky(infos, "train", factors)
     return {k: v.detach() for k, v in u.items()}, u_traj, losses
+
+
+def adam_segments(u0, lr, iterations, build_precond, loss_iters):
+    """Adam in training segments between preconditioner rebuilds, the host
+    loop of the SKI engines (gpim_tpu/gpreg/mgrid_model.py:596-642,
+    gpim_tpu/gpreg/ski_model.py:209-245). ``build_precond(u)`` returns the
+    preconditioner a segment uses and ``loss_iters(u, precond)`` the loss
+    and its realized CG iterations. A segment of 2 steps comes first, then
+    each is twice as long (up to 10) while the last step needed
+    at most 8 CG iterations, and half as long (at least 2) when it needed 16
+    or more; the host reads that one value a segment.
+
+    Returns (final u, raw trajectory {key: (iterations, ...)}, losses,
+    realized CG iterations (iterations,) on the device, segment lengths):
+    the post-update parameters and the pre-update loss of every step, as
+    :func:`adam_steps` records them; the Adam moments carry across
+    segments.
+    """
+    u = {k: v.detach().clone().requires_grad_(True) for k, v in u0.items()}
+    opt = torch.optim.Adam(list(u.values()), lr=lr)
+    first = next(iter(u.values()))
+    losses = torch.empty((iterations,), dtype=first.dtype,
+                         device=first.device)
+    its = torch.empty_like(losses)
+    u_traj = {k: torch.empty((iterations,) + tuple(v.shape), dtype=v.dtype,
+                             device=first.device) for k, v in u.items()}
+    segments = []
+    i, s_next = 0, 2
+    while i < iterations:
+        s = min(s_next, iterations - i)
+        precond = build_precond(u)
+        for _ in range(s):
+            opt.zero_grad(set_to_none=True)
+            loss, it = loss_iters(u, precond)
+            loss.backward()
+            opt.step()
+            with torch.no_grad():
+                losses[i], its[i] = loss, it
+                for k, v in u.items():
+                    u_traj[k][i] = v
+            i += 1
+        segments.append(s)
+        last_it = float(its[i - 1])                   # one read a segment
+        if last_it >= 16.0:
+            s_next = max(2, s // 2)
+        elif last_it <= 8.0:
+            s_next = min(_MAX_SEGMENT, s * 2)
+    return ({k: v.detach() for k, v in u.items()}, u_traj, losses, its,
+            segments)
 
 
 def train(u0, X, y, mask, bounds, lr, jitter, *, kernel, iterations,

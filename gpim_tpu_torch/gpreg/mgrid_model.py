@@ -38,17 +38,15 @@ import math
 import numpy as np
 import torch
 
-from gpim_tpu_torch.gpreg import engine
+from gpim_tpu_torch.gpreg import engine, ski_model
 from gpim_tpu_torch.gpreg.multi import _constrain_task as _constrain
-from gpim_tpu_torch.kernels.transforms import interval_log_jacobian
+from gpim_tpu_torch.gpreg.ski_model import _kernel_params
 from gpim_tpu_torch.ops import kron_exact, ski
 
 __all__ = ["MaskedGridEngine", "detect_masked_lattice",
            "cartesian_axes_from_points"]
 
-_LOG_2PI = math.log(2.0 * math.pi)
 _PREDICT_CHUNK = 4096
-_MAX_SEGMENT = 10           # the longest training segment between rebuilds
 
 
 # --------------------------------------------------------------------------
@@ -120,32 +118,18 @@ def cartesian_axes_from_points(X_flat, dims, rtol=1e-6):
 # loss, preconditioner, prediction
 # --------------------------------------------------------------------------
 
-def _kernel_params(p):
-    return {"lengthscale": p["lengthscale"], "variance": p["variance"]}
-
-
 def _loss(u, axes, mask_flat, g0, Qp, lam_n, y_flat, bounds, jitter, *,
           kernel, grid_shape, cg_iters, record_iters=False):
     """The masked-lattice MAP objective (gpim_tpu mgrid_model.py:134-169):
-    the SKI marginal likelihood over all G cells, less the exact
-    0.5 (G - n_obs) log(noise) of the masked cells' noise-only rows, less
-    the lengthscales' interval log-Jacobian; with ``record_iters`` also the
-    realized CG iterations."""
+    :func:`ski_model._loss` over the masked operator and all G cells, whose
+    masked cells are noise-only rows as padded rows are there; with
+    ``record_iters`` also the realized CG iterations."""
     core = ski.ski_mll_from_mvm(
         ski.make_masked_grid_mvm(grid_shape, mask_flat, batch_first=True),
         cg_iters, g0, return_iters=True)
-    p = _constrain(u, bounds)
-    yc = (y_flat - p["mean"]) * mask_flat
-    noise_pj = p["noise"] + jitter
-    n_eff = mask_flat.sum()
-    G = y_flat.shape[0]
-    factors = ski.grid_kernel_factors(kernel, _kernel_params(p), axes)
-    base, it = core(factors, noise_pj, yc, Qp, lam_n)
-    loss = (base + 0.5 * n_eff * _LOG_2PI
-            - 0.5 * (G - n_eff) * torch.log(noise_pj)
-            - interval_log_jacobian(u["lengthscale"], bounds["ls_lo"],
-                                    bounds["ls_hi"]))
-    return (loss, it) if record_iters else loss
+    return ski_model._loss(u, axes, core, Qp, lam_n, y_flat, mask_flat,
+                           bounds, jitter, kernel=kernel,
+                           record_iters=record_iters)
 
 
 @torch.no_grad()
@@ -250,41 +234,15 @@ class MaskedGridEngine:
         noise and loss (iters,)[, cg_iters (iters,)]). The Adam moments
         carry across segments; the trajectory holds the post-update
         hyperparameters and the pre-update loss of every step."""
-        n = int(iterations)
-        u = {k: v.detach().clone().requires_grad_(True)
-             for k, v in u0.items()}
-        opt = torch.optim.Adam(list(u.values()), lr=lr)
-        losses = torch.empty((n,), dtype=self.dtype, device=self.device)
-        its = torch.empty_like(losses)
-        u_traj = {k: torch.empty((n,) + tuple(v.shape), dtype=v.dtype,
-                                 device=self.device) for k, v in u.items()}
-        segments = []
-        i, s_next = 0, 2
-        while i < n:
-            s = min(s_next, n - i)
-            Qp, lam_n = _build_precond(u, self._axes, self._mask, bounds,
-                                       kernel=self.kernel,
-                                       rank=self.precond_rank)
-            for _ in range(s):
-                opt.zero_grad(set_to_none=True)
-                loss, it = _loss(u, self._axes, self._mask, self._g0, Qp,
-                                 lam_n, self._y, bounds, jitter,
-                                 kernel=self.kernel,
+        u, u_traj, losses, its, segments = engine.adam_segments(
+            u0, lr, int(iterations),
+            lambda u: _build_precond(u, self._axes, self._mask, bounds,
+                                     kernel=self.kernel,
+                                     rank=self.precond_rank),
+            lambda u, pre: _loss(u, self._axes, self._mask, self._g0, *pre,
+                                 self._y, bounds, jitter, kernel=self.kernel,
                                  grid_shape=self.grid_shape,
-                                 cg_iters=self.cg_iters, record_iters=True)
-                loss.backward()
-                opt.step()
-                with torch.no_grad():
-                    losses[i], its[i] = loss, it
-                    for k, v in u.items():
-                        u_traj[k][i] = v
-                i += 1
-            segments.append(s)
-            last_it = float(its[i - 1])               # one read a segment
-            if last_it >= 16.0:
-                s_next = max(2, s // 2)
-            elif last_it <= 8.0:
-                s_next = min(_MAX_SEGMENT, s * 2)
+                                 cg_iters=self.cg_iters, record_iters=True))
         with torch.no_grad():
             p = _constrain(u_traj, bounds)
         traj = {"lengthscale": p["lengthscale"], "noise": p["noise"],
@@ -293,7 +251,7 @@ class MaskedGridEngine:
         self.last_segments = segments
         if record_cg_iters:
             traj["cg_iters"] = its
-        return {k: v.detach() for k, v in u.items()}, traj
+        return u, traj
 
     def predict(self, u, bounds, jitter, Xtest_clean, fulldims):
         """Predictive mean and variance (tensors) at the NaN-free test points

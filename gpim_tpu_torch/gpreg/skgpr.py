@@ -27,17 +27,20 @@ Routes, chosen as ``gpim_tpu`` chooses them:
   NaN-masked grid on uniform axes, which is what ``utils.get_sparse_grid``
   gives; ``lattice=True``, the default): split-preconditioned CG with the
   SLQ log-determinant over the masked Kronecker operator, K1 for every
-  kernel factor (:mod:`gpim_tpu_torch.gpreg.mgrid_model`).
+  kernel factor (:mod:`gpim_tpu_torch.gpreg.mgrid_model`);
+- off-lattice SKI (``ski=True``, at least ``ski_min_points`` rows that are
+  neither, or any such data with ``lattice=False``): linear interpolation
+  onto an inducing grid of ``grid_points_ratio`` n^(1/d) points a
+  dimension, the same solver over the interpolated operator, K1 for every
+  kernel factor (:mod:`gpim_tpu_torch.gpreg.ski_model`).
 
 Not ported yet, and raising ``NotImplementedError`` when the model is
-built: the off-lattice SKI route (``ski=True`` on large data that is not
-on a uniform lattice, or with ``lattice=False``; ``gpim_tpu``'s
-``gpreg/ski_model.py``) and ``mesh=`` (the parallel slice).
+built: ``mesh=`` (the parallel slice).
 
 Reference defects stay fixed, as in ``gpim_tpu``: ``predict()`` without a
 test grid warns and predicts at the training points, and ``max_root`` is
-kept: it caps the masked-lattice route's preconditioner and Nystrom
-variance rank.
+kept: it sets the off-lattice route's Lanczos rank, and caps the SKI
+routes' preconditioner and Nystrom variance rank.
 """
 
 import time
@@ -47,12 +50,13 @@ import numpy as np
 import torch
 
 from gpim_tpu_torch import convert, dtypes
-from gpim_tpu_torch.gpreg import engine, mgrid_model, multi, structured
+from gpim_tpu_torch.gpreg import (
+    engine, mgrid_model, multi, ski_model, structured)
 from gpim_tpu_torch.gpreg.gpr import _NP_DTYPE, _resolve_device
 from gpim_tpu_torch.gpreg.kron_model import KronEngine
 from gpim_tpu_torch.kernels.transforms import (
     interval_inverse, positive_inverse)
-from gpim_tpu_torch.ops import kron_exact
+from gpim_tpu_torch.ops import kron_exact, ski
 from gpim_tpu_torch.utils import gridutils
 from gpim_tpu_torch.utils.profiling import Timer
 
@@ -78,9 +82,10 @@ class skreconstructor:
     ('single'/'double'; default: double on the CPU, single on CUDA), jitter,
     num_batches, maxroot (or max_root), grid_points_ratio, isotropic,
     n_mixtures (default 4), ski_min_points (default 8192), and for the
-    masked-lattice route lattice (default True), cg_iterations (64),
-    n_probes (8) and precond_rank (None: 1024 at 500k grid cells or more,
-    else 512); seed also draws that route's probes.
+    SKI routes lattice (default True; False sends large data to the
+    off-lattice route), cg_iterations (64), n_probes (8) and precond_rank
+    (None: on the masked lattice 1024 at 500k grid cells or more, else
+    512); seed also draws those routes' probes.
     """
 
     def __init__(self,
@@ -141,7 +146,6 @@ class skreconstructor:
             "precond_rank": kwargs.get("precond_rank"),
             "seed": seed,
         }
-        # the route first: an unported one raises before any work
         self._build_engines(X, y, X_np, y_np)
 
         isotropic = bool(kwargs.get("isotropic"))
@@ -184,11 +188,13 @@ class skreconstructor:
         ``ski`` is asked for on at least ``ski_min_points`` padded rows:
         exact Kronecker inference if they cover a full Cartesian grid with
         no NaNs, else the masked-lattice engine if the raw grid ``X`` is a
-        NaN-masked lattice of uniform axes (and ``lattice``); the dense
-        exact engine below that size. The off-lattice SKI route raises."""
+        NaN-masked lattice of uniform axes (and ``lattice``), else the
+        off-lattice SKI engine on grids of ``grid_points_ratio``; the dense
+        exact engine below that size."""
         opts = self._engine_opts
         self._kron_engine = None
         self._mgrid_engine = None
+        self._ski_engine = None
         self._Y_grid = None
         n_pad = dtypes.round_up(max(len(X_np), 1), _PAD_BUCKET)
         if not (self.do_ski and n_pad >= opts["ski_min_points"]):
@@ -207,13 +213,18 @@ class skreconstructor:
         lat_axes = (mgrid_model.detect_masked_lattice(X, y)
                     if opts["lattice"] else None)
         if lat_axes is None:
-            raise NotImplementedError(
-                "ski=True on %d observations that are not a NaN-masked "
-                "uniform lattice%s takes the off-lattice SKI route "
-                "(gpim_tpu's gpreg/ski_model.py SKIEngine: grid "
-                "interpolation, ski_mvm, Lanczos), which is not ported to "
-                "gpim_tpu_torch yet; pass ski=False for the dense exact GP"
-                % (len(X_np), "" if opts["lattice"] else " (lattice=False)"))
+            Xp, n = engine.pad_rows(X_np, _PAD_BUCKET)
+            mask = np.zeros(len(Xp), X_np.dtype)
+            mask[:n] = 1.0
+            self._ski_engine = ski_model.SKIEngine(
+                self.kernel_type, Xp, mask,
+                ski.choose_grid(X_np, ratio=float(self.grid_points_ratio)),
+                self.dtype, self.device, cg_iters=opts["cg_iterations"],
+                n_probes=opts["n_probes"], precond_rank=opts["precond_rank"],
+                rank=int(self.maxroot), seed=opts["seed"])
+            if self.verbose == 2:
+                print("SKI grid:", self._ski_engine.grid_shape)
+            return
         self._mgrid_engine = mgrid_model.MaskedGridEngine(
             self.kernel_type, lat_axes, ~np.isnan(y), y, self.dtype,
             self.device, cg_iters=opts["cg_iterations"],
@@ -283,6 +294,14 @@ class skreconstructor:
                 self.u = {k: v[None] for k, v in u_g.items()}
                 traj["lengthscale"] = traj["lengthscale"][:, None, :]
                 traj["noise"] = traj["noise"][:, None]
+            elif self._ski_engine is not None:
+                u_s, traj = self._ski_engine.train(
+                    {k: v[0] for k, v in self.u.items()}, self._yd,
+                    self._maskd, self._bounds(), lr, self.jitter,
+                    iterations=iters)
+                self.u = {k: v[None] for k, v in u_s.items()}
+                traj["lengthscale"] = traj["lengthscale"][:, None, :]
+                traj["noise"] = traj["noise"][:, None]
             else:
                 self.u, traj = multi.train_independent(
                     self.u, self._Xd, self._yd[:, None], self._maskd,
@@ -346,12 +365,16 @@ class skreconstructor:
         if kwargs.get("num_batches") is not None:
             self.num_batches = kwargs.get("num_batches")
         if kwargs.get("max_root") is not None:
-            # kept, not dropped as in the reference (skgpr.py:305-306): on
-            # the masked lattice the variance root is the preconditioner's
-            # eigen-root, so max_root caps its rank and never raises it
+            # kept, not dropped as in the reference (skgpr.py:305-306): it
+            # sets the off-lattice route's Lanczos rank, and on both SKI
+            # routes the variance root is the preconditioner's eigen-root,
+            # so max_root caps its rank and never raises it
             # (gpim_tpu/gpreg/skgpr.py:357-376)
             self.maxroot = kwargs.get("max_root")
-            eng = self._mgrid_engine
+            if self._ski_engine is not None:
+                self._ski_engine.rank = int(
+                    min(self.maxroot, self._Xd.shape[0]))
+            eng = self._ski_engine or self._mgrid_engine
             if eng is not None and eng.precond_rank > 0:
                 capped = int(min(self.maxroot, eng.precond_rank))
                 if self.verbose and capped < eng.precond_rank:
@@ -371,6 +394,10 @@ class skreconstructor:
                 mean, var = self._mgrid_engine.predict(
                     {k: v[0] for k, v in self.u.items()}, self._bounds(),
                     self.jitter, Xtest_clean, self.fulldims)
+            elif self._ski_engine is not None:
+                mean, var = self._ski_engine.predict(
+                    {k: v[0] for k, v in self.u.items()}, self._yd,
+                    self._maskd, self._bounds(), self.jitter, Xtest_clean)
             else:
                 nb = max(1, int(self.num_batches))
                 target = (-(-len(self.Xtest) // nb) if nb > 1

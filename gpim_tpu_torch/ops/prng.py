@@ -1,6 +1,6 @@
 """
-JAX's normal draws in numpy, so that a seed starts the port where it starts
-``gpim_tpu``.
+JAX's normal and Rademacher draws in numpy, so that a seed starts the port
+where it starts ``gpim_tpu``.
 
 ``gpim_tpu`` draws random initial parameters with
 ``jax.random.normal(jax.random.PRNGKey(seed), shape, dtype)`` (the correlated
@@ -18,12 +18,19 @@ the threefry2x32 block cipher on the flat element index, as JAX does with
   float64 and rounded to ``dtype``. XLA's float32 ``erf_inv`` is a
   polynomial, so float32 draws agree to a few float32 ulps, float64 draws to
   round-off.
+
+The off-lattice SKI predictor starts its Lanczos variance from
+``jax.random.rademacher(jax.random.PRNGKey(seed), (n,))``
+(``gpim_tpu/ops/ski.py:1183``): ``2 bernoulli(0.5) - 1``, where bernoulli is
+``uniform < 0.5`` with the uniform in float64 (the probability's type under
+64-bit mode). The mantissa-trick uniform is below 0.5 exactly when the top
+bit of its 64 random bits is 0, so the draw is exact.
 """
 
 import numpy as np
 import torch
 
-__all__ = ["jax_normal"]
+__all__ = ["jax_normal", "jax_rademacher"]
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = np.uint32(0x1BD11BDA)
@@ -80,3 +87,12 @@ def jax_normal(seed, shape, dtype=np.float64):
     z = np.sqrt(2.0) * torch.special.erfinv(
         torch.from_numpy(u.astype(np.float64))).numpy()
     return z.astype(dtype).reshape(shape)
+
+
+def jax_rademacher(seed, shape, dtype=np.float64):
+    """``jax.random.rademacher(jax.random.PRNGKey(seed), shape)`` cast to
+    ``dtype``, as a numpy array of +1 and -1: +1 where the top bit of the
+    element's 64 random bits is 0."""
+    shape = tuple(int(s) for s in shape)
+    bits = _random_bits(seed, int(np.prod(shape)), 64)
+    return np.where(bits >> np.uint64(63), -1, 1).astype(dtype).reshape(shape)

@@ -1,7 +1,7 @@
 """
 Structured-kernel-interpolation building blocks on tensors (counterpart of
-``gpim_tpu/ops/ski.py``): the solver core of the SKI routes and the
-masked-lattice operator.
+``gpim_tpu/ops/ski.py``): the solver core of the SKI routes, the
+masked-lattice operator and the off-lattice interpolation operator.
 
 With data on the Cartesian data lattice (NaNs at unmeasured cells, as
 ``utils.get_sparse_grid`` gives it) the inducing grid equals the data grid
@@ -32,6 +32,16 @@ no scatter (:func:`make_masked_grid_mvm`). Around it:
   (:func:`make_grid_predictor`), and the exact posterior variance at a few
   cells by CG (:func:`mgrid_exact_var_probe`).
 
+Data off the lattice goes through linear interpolation onto a Cartesian
+inducing grid (:func:`choose_grid`, :func:`build_interp`): the operator is
+A v = W K_UU W^T v + (noise + jitter) v (:func:`make_interp_mvm`), W^T a
+scatter-add of the 2^d weighted corners, W a gather. Its preconditioner is
+the dense Nystrom basis of the interpolated Kronecker eigen-root
+(:func:`kron_eig_root`, :func:`split_root`), and its predictor
+(:func:`make_ski_predictor`) takes the Nystrom variance of that root or, at
+preconditioner rank 0, the LOVE variance of a Lanczos factorisation
+(:func:`lanczos`).
+
 Every kernel factor and cross factor is built by the kernel functions, so
 on a CUDA tensor its distances are one K1 launch at d = 1. The operator
 takes its factors as arguments: a loss evaluation builds them once and
@@ -39,14 +49,15 @@ every CG iteration reuses them (``gpim_tpu`` rebuilds them inside every
 mvm and leaves the hoisting to XLA).
 
 TPU workarounds of ``gpim_tpu`` not carried here: the
-``optimization_barrier`` pins (eager PyTorch fuses nothing), and the
-batch-first rationale of 128-lane tiling. The batch-first layout (probes as
-rows) stays the CG layout all the same: every CG vector is then a
-contiguous row and every mode product a plain or strided-batched gemm.
-Not ported yet: the off-lattice interpolation operator (``ski_mvm``,
-``build_interp``, ``kron_eig_root``, ``lanczos``, ``make_ski_predictor``,
-``ski_mll``), the multi-device mode products, and the experimental
-warm-started CG (``warm_start``).
+``optimization_barrier`` pins (eager PyTorch fuses nothing), the batch-first
+rationale of 128-lane tiling, the sorted-corner form of ``ski_mvm`` (one
+sorted scatter and grid rolls, for XLA's TPU scatter lowering; the plain
+form's semantics are kept) and the dense one-hot interpolation gemm of
+``kron_eig_root`` (for slow minor-dimension gathers; a row gather gives the
+same root). The batch-first layout (probes as rows) stays the CG layout all
+the same: every CG vector is then a contiguous row and every mode product a
+plain or strided-batched gemm. Not ported yet: the multi-device mode
+products and the experimental warm-started CG (``warm_start``).
 """
 
 import math
@@ -57,6 +68,8 @@ import torch
 
 from gpim_tpu_torch.kernels.functional import get_kernel_fn
 from gpim_tpu_torch.ops.kron_exact import modeprod
+from gpim_tpu_torch.ops.linalg import safe_cholesky, solve_triangular
+from gpim_tpu_torch.ops.prng import jax_rademacher
 
 __all__ = [
     "grid_kernel_factors", "kron_mvm_bf",
@@ -65,6 +78,8 @@ __all__ = [
     "ski_mll_from_mvm", "grid_kr_rows", "grid_nystrom_var",
     "grid_cross_factors", "make_grid_predictor", "mgrid_exact_var_probe",
     "kernel_self_diag", "mgrid_solve_core",
+    "choose_grid", "build_interp", "build_interp_sep", "make_interp_mvm",
+    "kron_eig_root", "ski_mll", "lanczos", "make_ski_predictor",
 ]
 
 # CG reads whether every column has converged on the host only every this
@@ -690,3 +705,244 @@ def mgrid_exact_var_probe(kernel, p, grids, grid_shape, mask_flat,
     X, _, _ = split_pcg(lambda v: mvm(factors, noise_pj, v), pisqrt, B,
                         cg_iters, vec_axis=1)
     return (kss - (B * X).sum(1)).clamp_min(0.0)
+
+
+# --------------------------------------------------------------------------
+# off-lattice data: grid interpolation (host side, numpy)
+# --------------------------------------------------------------------------
+
+def choose_grid(X, ratio=1.0, min_size=8, max_size=512):
+    """Per-dim 1D inducing grids for the points ``X`` (n, d): g = ratio *
+    n^(1/d) points, clipped to [min_size, max_size], over the data range
+    padded by one step at each end (g + 2 points in ``X``'s dtype; the grids
+    gpim_tpu/ops/ski.py:60-72 chooses)."""
+    n, d = X.shape
+    g = int(max(min_size, min(max_size, round(ratio * n ** (1.0 / d)))))
+    grids = []
+    for k in range(d):
+        lo, hi = float(np.min(X[:, k])), float(np.max(X[:, k]))
+        span = max(hi - lo, 1e-6)
+        step = span / (g - 1) if g > 1 else span
+        grids.append(np.linspace(lo - step, hi + step, g + 2,
+                                 dtype=X.dtype))
+    return grids
+
+
+def _lower_corners(X, grids):
+    """Per-dim lower grid index (int64, at most g_k - 2) and lower weight
+    (float64, as ``gpim_tpu`` computes it) of each point."""
+    i0, w0 = [], []
+    for k, g in enumerate(grids):
+        t = (X[:, k] - g[0]) / (g[1] - g[0])
+        i = np.clip(np.floor(t).astype(np.int64), 0, len(g) - 2)
+        i0.append(i)
+        w0.append(1.0 - np.clip(t - i, 0.0, 1.0))
+    return i0, w0
+
+
+def build_interp(X, grids, mask=None):
+    """Linear-interpolation weights of each point onto the Cartesian grid:
+    (idx, wgt), (n, 2^d) int32 row-major flat grid indices and weights of
+    the cell's corners (corner s takes the upper index along dim k where
+    bit k of s is set). Rows with ``mask`` 0 get zero weights, so padding
+    is inert (gpim_tpu/ops/ski.py:75-108)."""
+    n, d = X.shape
+    sizes = [len(g) for g in grids]
+    i0, w0 = _lower_corners(X, grids)
+    S = 1 << d
+    idx = np.zeros((n, S), np.int64)
+    wgt = np.ones((n, S), X.dtype)
+    for s in range(S):
+        flat = np.zeros(n, np.int64)
+        w = np.ones(n, X.dtype)
+        for k in range(d):
+            bit = (s >> k) & 1
+            flat = flat * sizes[k] + i0[k] + bit
+            w = w * ((1.0 - w0[k]) if bit else w0[k])
+        idx[:, s] = flat
+        wgt[:, s] = w
+    if mask is not None:
+        wgt = wgt * np.asarray(mask, X.dtype)[:, None]
+    return idx.astype(np.int32), wgt
+
+
+def build_interp_sep(X, grids):
+    """The separable form of :func:`build_interp`: each point's lower grid
+    index (int32) and lower weight per dimension, (n, d) each; the corner
+    weights are their products (gpim_tpu/ops/ski.py:111-130)."""
+    i0, w0 = _lower_corners(X, grids)
+    return np.stack(i0, 1).astype(np.int32), np.stack(w0, 1).astype(X.dtype)
+
+
+# --------------------------------------------------------------------------
+# off-lattice data: the interpolation operator and its eigen-root
+# --------------------------------------------------------------------------
+
+def _interp_adjoint(idx, wgt, v, G):
+    """W^T v: the 2^d weighted corners of each point of the batch-first
+    block ``v`` (b, n) scattered onto the grid, returned as a (G, b) grid
+    block. ``index_add_`` sums them, a row of b values per corner (on the
+    card this layout took 0.59 ms where a (b, G) block took 0.71, at
+    n = 314624, G = 70^3, b = 9); on CUDA its float atomics add in no fixed
+    order."""
+    b, (n, S) = v.shape[0], idx.shape
+    return v.new_zeros((G, b)).index_add_(
+        0, idx.reshape(-1), (wgt[:, :, None] * v.mT[:, None, :]).reshape(
+            n * S, b))
+
+
+def _interp_apply(idx, wgt, t):
+    """W t: each point's 2^d corners gathered from the (G, b) grid block
+    ``t`` and weighted; returns the batch-first (b, n)."""
+    n, S = idx.shape
+    return (t.index_select(0, idx.reshape(-1)).reshape(n, S, -1)
+            * wgt[:, :, None]).sum(1).mT
+
+
+def make_interp_mvm(idx, wgt, grid_shape):
+    """mvm(factors, noise_pj, v) = W (x)_k factors_k W^T v + noise_pj v, the
+    SKI operator of off-lattice points (gpim_tpu/ops/ski.py:239-301, its
+    plain form), batch-first: ``v`` is (n,) or (b, n). ``idx`` (int64) and
+    ``wgt`` (n, 2^d) come from :func:`build_interp`; the factors from
+    :func:`grid_kernel_factors`, built once by the caller. The grid block
+    between the scatter and the gather is (G, b)."""
+    grid_shape = tuple(int(s) for s in grid_shape)
+    G = math.prod(grid_shape)
+
+    def mvm(factors, noise_pj, v):
+        squeeze = v.dim() == 1
+        if squeeze:
+            v = v[None, :]
+        b = v.shape[0]
+        t = modeprod(factors, _interp_adjoint(idx, wgt, v, G).reshape(
+            grid_shape + (b,)))
+        out = _interp_apply(idx, wgt, t.reshape(G, b)) + noise_pj * v
+        return out[0] if squeeze else out
+    return mvm
+
+
+def kron_eig_root(modes, i0, w0, mask=None):
+    """Rank-r root L = W U_r sqrt(Lam_r) of the SKI kernel's top Kronecker
+    eigenspace, K_hat = W K_UU W^T ~= L L^T (gpim_tpu/ops/ski.py:314-375).
+    The grid eigenvectors and the corner weights both factor per dimension,
+    so column m of L is
+
+        prod_k ( w0_k U_k[i0_k, m_k] + (1 - w0_k) U_k[i0_k + 1, m_k] ):
+
+    d row gathers of the per-dim tables, O(n r d), nothing G-sized.
+    ``modes`` = (lam_top, Us, mdim) from :func:`_kron_top_modes`, shared by
+    the training- and test-side roots (they must span the same eigenspace);
+    ``i0`` (int64) and ``w0`` (n, d) from :func:`build_interp_sep`;
+    ``mask`` (n,) zeroes padded rows. ``gpim_tpu`` interpolates each table
+    by a dense (n, g_k) one-hot gemm, for the TPU's slow minor-dimension
+    gathers; the row gather gives the same root to round-off."""
+    lam_top, Us, mdim = modes
+    out = None
+    for k, (U, m) in enumerate(zip(Us, mdim)):
+        U_sel = U[:, m]                                  # (g_k, r)
+        w = w0[:, k, None]
+        cols = U_sel.index_select(0, i0[:, k]).mul_(w)
+        cols.addcmul_(U_sel.index_select(0, i0[:, k] + 1), 1.0 - w)
+        out = cols if out is None else out.mul_(cols)
+    out.mul_(lam_top.sqrt())
+    return out if mask is None else out.mul_(mask[:, None])
+
+
+def ski_mll(idx, wgt, grid_shape, cg_iters, g0, return_iters=False):
+    """:func:`ski_mll_from_mvm` over the interpolation operator
+    (gpim_tpu/ops/ski.py:844-882): core(factors, noise_pj, yc, Q, lam_n),
+    with ``g0`` (p, n) the batch-first probes and (Q, lam_n) the dense
+    Nystrom basis of :func:`kron_eig_root` through :func:`split_root`."""
+    return ski_mll_from_mvm(make_interp_mvm(idx, wgt, grid_shape), cg_iters,
+                            g0, return_iters=return_iters)
+
+
+# --------------------------------------------------------------------------
+# off-lattice prediction: the SKI mean, the Nystrom or LOVE variance
+# --------------------------------------------------------------------------
+
+def lanczos(mvm, v0, rank):
+    """``rank`` Lanczos steps on ``mvm`` from ``v0`` (n,) with full
+    reorthogonalisation (gpim_tpu/ops/ski.py:1064-1089): returns Q (rank, n)
+    and the tridiagonal T (rank, rank). A breakdown divides by 1e-30 rather
+    than stopping, as there, so nothing waits for the device."""
+    q = v0 / v0.norm().clamp_min(1e-30)
+    Q = v0.new_zeros((rank,) + tuple(v0.shape))
+    alphas, betas = v0.new_empty(rank), v0.new_empty(rank)
+    q_prev, beta = torch.zeros_like(q), v0.new_zeros(())
+    for k in range(rank):
+        w = mvm(q)
+        alpha = torch.dot(q, w)
+        w = w - alpha * q - beta * q_prev
+        w = w - Q.mT @ (Q @ w)           # rows k and on are still zero
+        beta = w.norm()
+        Q[k] = q
+        alphas[k], betas[k] = alpha, beta
+        q_prev, q = q, w / beta.clamp_min(1e-30)
+    T = (torch.diag(alphas) + torch.diag(betas[:-1], 1)
+         + torch.diag(betas[:-1], -1))
+    return Q, T
+
+
+def make_ski_predictor(kernel, grids, grid_shape, idx, wgt, i0, w0, mask,
+                       cg_iters, rank, precond_rank=0):
+    """Returns predict(p, noise_pj, yc, test_idx, test_wgt, t_i0, t_w0, kss,
+    seed) -> (mean, var), the SKI posterior at the test points
+    (gpim_tpu/ops/ski.py:1092-1199), without the noise term:
+
+        mean_* = w_*^T K_UU W^T alpha,   alpha = A^-1 yc.
+
+    With ``precond_rank`` > 0 the solve is split-preconditioned by the
+    Kronecker eigen-root, and the variance is the Nystrom extension of the
+    same root: kss - row_norms^2(Lt Un sqrt(lam_n / (lam_n + noise))), with
+    Lp^T Lp = Un lam_n Un^T for the training-side root Lp and Lt the
+    test-side root. At 0 the solve is Jacobi-preconditioned CG and the
+    variance LOVE's: kss - c_*^T T^-1 c_* with c_* = w_*^T K_UU W^T Q^T and
+    Q, T from ``rank`` Lanczos steps on A, started from JAX's Rademacher
+    draw for ``seed``. ``idx``, ``wgt``, ``i0``, ``w0`` and ``mask`` are the
+    training points' interpolation; the kernel factors are built once a
+    call (d K1 launches on CUDA)."""
+    grid_shape = tuple(int(s) for s in grid_shape)
+    G = math.prod(grid_shape)
+    op = make_interp_mvm(idx, wgt, grid_shape)
+
+    def predict(p, noise_pj, yc, test_idx, test_wgt, t_i0, t_w0, kss, seed):
+        factors = grid_kernel_factors(kernel, p, grids)
+
+        def kuu_wt(v):                                  # (b, n) -> (G, b)
+            b = v.shape[0]
+            return modeprod(factors, _interp_adjoint(idx, wgt, v, G).reshape(
+                grid_shape + (b,))).reshape(G, b)
+
+        def mvm(v):
+            return op(factors, noise_pj, v)
+        if precond_rank > 0:
+            modes = _kron_top_modes(factors, precond_rank)
+            Qs, lam_n, Un = split_root(kron_eig_root(modes, i0, w0, mask))
+            pisqrt, _ = split_apply(Qs, lam_n, noise_pj, vec_axis=1)
+            alpha = split_pcg(mvm, pisqrt, yc[None, :], cg_iters,
+                              vec_axis=1)[0]
+        else:
+            alpha = batched_pcg(mvm, lambda r: r / noise_pj, yc[None, :],
+                                cg_iters, vec_axis=1)[0]
+        mean = _interp_apply(test_idx, test_wgt, kuu_wt(alpha))[0]
+        if precond_rank > 0:
+            H = kron_eig_root(modes, t_i0, t_w0) @ Un
+            var = kss - H.mul_((lam_n / (lam_n + noise_pj)).sqrt()).square_(
+            ).sum(1)
+        else:
+            v0 = torch.as_tensor(
+                jax_rademacher(seed, (yc.shape[0],),
+                               str(yc.dtype).split(".")[-1]),
+                device=yc.device)
+            Q, T = lanczos(mvm, v0, rank)
+            c_star = _interp_apply(test_idx, test_wgt, kuu_wt(Q))  # (r, m)
+            r = T.shape[0]
+            LT, _ = safe_cholesky(
+                T + 1e-6 * torch.trace(T) / r
+                * torch.eye(r, dtype=T.dtype, device=T.device))
+            half = solve_triangular(LT, c_star, lower=True)
+            var = kss - half.square().sum(0)
+        return mean, var.clamp_min(0.0)
+
+    return predict

@@ -11,8 +11,10 @@ of all three (T = 1, 3 and 64 problems in one launch, ragged n, K3's
 determinism task by task, unbatched calls the same launch as one task) with
 the multi-output losses and gradients against the CPU path; and K1 at the
 exact Kronecker route's one-feature shapes, with the Kronecker and spectral
-losses and gradients against the CPU path. One test, of the bytes the
-kernels' bounds count, runs on the CPU.
+losses and gradients against the CPU path; K1 at the masked-lattice and
+off-lattice SKI routes' factor shapes, with their operators and losses
+against the CPU path. One test, of the bytes the kernels' bounds count,
+runs on the CPU.
 
 The tests marked ``cuda`` need a CUDA device and skip without one. The file
 imports no JAX, so it runs on a machine without it (there the repo's
@@ -767,3 +769,108 @@ def test_masked_operator_and_split_solve_cuda_vs_cpu(dev, dtype):
     X, Xc = out["cuda"][2], out["cpu"][2]
     scale = float(Xc.abs().max())
     assert float((X - Xc).abs().max()) <= (1e-9 if f64 else 2e-3) * scale
+
+
+# --------------------------------------------------------------------------
+# The off-lattice slice: K1 at its inducing-grid factor shapes (d = 1), the
+# interpolation operator and the off-lattice SKI loss card against CPU
+# --------------------------------------------------------------------------
+
+# ski_offlattice64x64x32 and ski_offlattice128x128x64: choose_grid's 36 and
+# 70 points a dimension, each factor (g, g)
+SKI_SHAPES = [(36, 36), (70, 70)]
+
+
+@cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n, m", SKI_SHAPES)
+def test_sqdist_at_the_off_lattice_shapes(dev, dtype, n, m):
+    step = 63.0 / (m - 3)
+    g = torch.as_tensor(np.linspace(-step, 63.0 + step, m)[:, None] / 12.0,
+                        dtype=dtype, device=dev)
+    out = gk.sqdist(g[:n], g)
+    _close(out, gk.sqdist_plain(g[:n].double(), g.double()),
+           float(g.max() - g.min()) ** 2, dtype)
+    assert (torch.diagonal(out) == 0).all()
+
+
+def _ski_problem(rng, n=700, d=3):
+    from gpim_tpu_torch.ops import ski
+    X = rng.rand(n, d) * 12.0
+    mask = (rng.rand(n) < 0.9).astype(float)
+    grids = ski.choose_grid(X, ratio=1.2)
+    u = {"lengthscale": np.array([0.3, -0.2, 0.1])[:d],
+         "outputscale": np.asarray(0.2), "noise": np.asarray(-2.0),
+         "mean": np.asarray(0.4)}
+    bounds = {"ls_lo": np.zeros(d), "ls_hi": np.full(d, 6.0)}
+    y = np.sin(X[:, 0] / 3.0) * mask
+    return X, mask, grids, y, u, bounds
+
+
+@cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_off_lattice_operator_cuda_vs_cpu(dev, dtype):
+    """W K_UU W^T v + noise v (index_add_ scatter, mode products, gather)
+    on a (5, n) block, card against CPU: index_add_'s atomics sum in
+    another order, so the two agree to round-off."""
+    from gpim_tpu_torch.ops import ski
+    X, mask, grids, _, _, _ = _ski_problem(np.random.RandomState(22))
+    idx, wgt = ski.build_interp(X, grids, mask)
+    V = np.random.RandomState(23).randn(5, len(X))
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        t = lambda a: torch.as_tensor(a, dtype=dtype,  # noqa: E731
+                                      device=device)
+        p = {"lengthscale": t([2.0, 1.5, 1.2]), "variance": t(1.3)}
+        factors = ski.grid_kernel_factors("RBF", p, [t(g) for g in grids])
+        mvm = ski.make_interp_mvm(
+            torch.as_tensor(idx, dtype=torch.int64, device=device), t(wgt),
+            tuple(len(g) for g in grids))
+        out[device.type] = mvm(factors, t(0.05), t(V)).cpu()
+    f64 = dtype == torch.float64
+    torch.testing.assert_close(out["cuda"], out["cpu"],
+                               rtol=1e-12 if f64 else 1e-5,
+                               atol=1e-12 if f64 else 1e-5)
+
+
+@cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_off_lattice_loss_and_gradient_cuda_vs_cpu(dev, dtype):
+    """The off-lattice SKI loss (the dense Nystrom preconditioner of the
+    interpolated eigen-root, split CG, SLQ, the surrogate backward; one K1
+    launch a grid factor) and its gradient, card against CPU, with the
+    same realized CG iterations in float64; float32 within 1e-3."""
+    from gpim_tpu_torch.gpreg import ski_model
+    from gpim_tpu_torch.ops import ski
+    X, mask, grids, y, u0, bounds = _ski_problem(np.random.RandomState(24))
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        eng = ski_model.SKIEngine("RBF", X.astype(np_dtype),
+                                  mask.astype(np_dtype), grids, dtype,
+                                  device, cg_iters=60, precond_rank=100,
+                                  seed=1)
+        t = lambda a: torch.as_tensor(a, dtype=dtype,  # noqa: E731
+                                      device=device)
+        u = {k: t(v).requires_grad_(True) for k, v in u0.items()}
+        tb = {k: t(v) for k, v in bounds.items()}
+        Qp, lam = ski_model._build_precond(
+            u, eng._grids, eng._i0, eng._w0, eng._mask, tb, kernel="RBF",
+            rank=eng.precond_rank)
+        core = ski.ski_mll(eng._idx, eng._wgt, eng.grid_shape,
+                           eng.cg_iters, eng._g0, return_iters=True)
+        before = gk.sqdist.launches
+        loss, it = ski_model._loss(
+            u, eng._grids, core, Qp, lam, t(y)[eng._perm],
+            t(mask)[eng._perm], tb, 1e-5, kernel="RBF", record_iters=True)
+        loss.backward()
+        if device.type == "cuda":
+            assert gk.sqdist.launches - before == len(grids)
+        out[device.type] = [loss.detach().cpu(), it.cpu()] + [
+            u[k].grad.cpu() for k in u0]
+    f64 = dtype == torch.float64
+    if f64:
+        assert float(out["cuda"][1]) == float(out["cpu"][1])
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-9 if f64 else 1e-3,
+                                   atol=1e-12 if f64 else 1e-3)

@@ -7,7 +7,8 @@ run() on every ported route (dense RBF and Matern52, spectral, exact
 Kronecker on a small full grid with ski_min_points lowered: trajectories,
 losses, mean and sd at rtol 1e-6 in float64 and 1e-3 in float32),
 checkpoints read across packages both ways, the no-Xtest warning, NaN test
-rows, step(), the options that raise and the masked-lattice routing.
+rows, step(), the options that raise and the routing of large masked
+and off-lattice data.
 """
 
 import numpy as np
@@ -336,29 +337,31 @@ def _off_lattice(X):
     return X
 
 
-@pytest.mark.parametrize("kwargs, coords, match", [
+@pytest.mark.parametrize("kwargs, coords, expect", [
     (dict(mesh=True), None, "mesh= is not ported yet"),
     (dict(kernel="RationalQuadratic"), None, "RBF, Matern52, Spectral"),
-    (dict(ski_min_points=256, lattice=False), None,
-     r"\(lattice=False\) takes the off-lattice SKI route"),
-    (dict(ski_min_points=256), _off_lattice, "off-lattice SKI route"),
-    (dict(ski_min_points=256), None, None),
+    (dict(ski_min_points=256, lattice=False), None, "_ski_engine"),
+    (dict(ski_min_points=256), _off_lattice, "_ski_engine"),
+    (dict(ski_min_points=256), None, "_mgrid_engine"),
 ])
-def test_unported_routes_and_options_raise(kwargs, coords, match):
-    """The off-lattice SKI route (ski=True on large data off a uniform
-    lattice, or with lattice=False) and mesh= raise when the model is
-    built; a large NaN-masked lattice takes the masked-lattice route."""
+def test_unported_routes_and_options_raise(kwargs, coords, expect):
+    """mesh= and an unknown kernel raise when the model is built; large
+    data off a uniform lattice, or any with lattice=False, builds the
+    off-lattice SKI engine, and a large NaN-masked lattice the
+    masked-lattice engine."""
     R = _grid_data()
     R[np.random.RandomState(2).rand(*R.shape) < 0.3] = np.nan
     X = jutils.get_sparse_grid(R)
     if coords is not None:
         X = coords(X)
-    if match is None:
+    if expect.startswith("_"):
         m = gpim_tpu_torch.skreconstructor(X, R, verbose=0, use_gpu=False,
                                            **kwargs)
-        assert m._mgrid_engine is not None and m._kron_engine is None
+        engines = ("_kron_engine", "_mgrid_engine", "_ski_engine")
+        assert [getattr(m, e) is not None for e in engines] == [
+            e == expect for e in engines]
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match=expect):
         gpim_tpu_torch.skreconstructor(X, R, verbose=0, use_gpu=False,
                                        **kwargs)
 
