@@ -35,7 +35,8 @@ its final line):
              bound, its plain version and (K1) batched torch.cdist.
 4. flagship - reconstructor(X, R, X_full, kernel="RBF", iterations=250,
              precision="single").run() on the 128x128 spiral
-             (examples/_data.spiral_scan, n = 6144 padded training rows,
+             (gpim_tpu_torch/examples/_data.spiral_scan, the same arrays as
+             examples/_data.py, n = 6144 padded training rows,
              16384 test points), cold then warm, built without use_gpu;
              rmse at the observed pixels < 0.1, no NaN, every kernel
              launched, every model tensor on the card.
@@ -54,14 +55,16 @@ its final line):
 7. bo      - boptimizer, built without use_gpu: the three BO rows of
              benchmarks/suite.py at their own sizes (25x25 target, 5 seeds,
              200 iterations; EI 30 steps, the same with simulated
-             measurements, CB batch of 8 for 10 steps; float32, on the
-             device step), cold then warm, with the suite's gates;
-             the full-width run: EI, 8 steps, 250 iterations, float64,
-             seeded with the flagship's spiral scan (n = 6144 rows, 16384
-             candidates), on the device step and on the host loop, which
-             must select the same points; a sparse surrogate (indpoints=24,
-             4 steps) in float32, then in float64 on both paths; bo25 EI in
-             float64 on the card against the CPU path;
+             measurements, CB batch of 8 for 10 steps; at the surrogate's
+             default precision, float64, on the device step), cold then
+             warm, with the suite's gates, and bo25 EI also at
+             precision="single"; the full-width run at the default
+             precision (float64; it must finish): EI, 8 steps, 250
+             iterations, seeded with the flagship's spiral scan (n = 6144
+             rows, 16384 candidates), on the device step and on the host
+             loop, which must select the same points; a sparse surrogate
+             (indpoints=24, 4 steps) in float32, then in float64 on both
+             paths; bo25 EI in float64 on the card against the CPU path;
              every run's kernel launches against what its code implies;
              ties in the ranking in ascending index order on the card.
 8. multi   - vreconstructor, built without use_gpu, at the two EELS
@@ -107,8 +110,13 @@ its final line):
              cells) and its peak device memory; every run's realized CG
              iterations, training segments and K1 launches against what
              its code implies (d (steps + segments + 2)); the masked mvm
-             in both layouts and P^-1/2 timed at the 1M shape; small
-             masked problems card against CPU in float64.
+             in both layouts and P^-1/2 timed at the 1M shape; the
+             experimental warm-started CG (MaskedGridEngine.train(
+             warm_start=True)) beside the cold one on ski_masked64x64x32
+             and the 1M row: both realized-CG series, both walls, the
+             final lengthscales' gap; the 1M engine's
+             train_memory_analysis, its measured peak beside the analytic
+             model; small masked problems card against CPU in float64.
 11. ski     - skreconstructor, built without use_gpu, on its off-lattice
              SKI route (lattice=False: grid interpolation, RBF, learning
              rate 0.1, float32): ski_offlattice64x64x32 (the cube of
@@ -139,11 +147,32 @@ its final line):
              (ckpfm4d) the host time of eigh (printed; a profiler that
              records no device time prints "not measured" and fails
              nothing).
+13. examples - each runner of gpim_tpu_torch/examples (the six
+             examples/*.py workflows) once, warm, at its script's full
+             budget on the card, its data made beforehand:
+             sparse_image_2d (the spiral, RBF, 250 iterations; rmse_obs <
+             0.1), hyperspectral_3d_sparse (the BEPFM VFE, 400 iterations;
+             rmse_vs_truth < 0.1), eels_parallel_gp (6 channels, 100
+             iterations, the 2x denser prediction), ckpfm_4d_ski (50
+             iterations and the 2x-dense predict; rmse_fit < 0.1),
+             large_masked_ski (64x64x32, 30 iterations; rmse_vs_truth < 0.75
+             data sd) and with --xl (128x128x64; the same gate and the 1M
+             row's variance gates), bayesian_optimization (25x25, EI, 20
+             steps, 200 GP iterations, its checkpoint in a temporary
+             directory); wall, train and predict s, peak memory, the
+             script's quality number, launches against the counts each
+             run implies; eels and the BO, which gate on nothing, must give
+             finite output of the expected shape.
+14. trace   - utils.profiling.trace around a warm flagship run of
+             PROFILE_STEPS training steps and its predict, and the same run
+             untraced: the exported Chrome trace must hold K1, K2 and K3 as
+             CUDA kernel events as often as the run launched them.
 
 Prints the kernels as one JSON line, then as its last line
 {"ok": true, "device": {...}}.
 """
 
+import importlib
 import json
 import os
 import re
@@ -155,7 +184,6 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, _HERE)
-sys.path.insert(0, os.path.join(_HERE, "examples"))
 
 ITERATIONS = 250
 VFE = dict(kernel="Matern52", sparse=True, indpoints=1000,
@@ -236,7 +264,7 @@ MULTI_PROFILE_STEPS = 3
 MULTI_CROSS_TOL = {"mean_atol": 5e-5, "sd_atol": 1e-5, "ls_rtol": 4e-4,
                    "noise_rtol": 1e-4}
 # The cKPFM row of benchmarks/suite.py:278-295 (bench_ckpfm_4d_ski), as
-# the suite calls it: the 10x10x64x5 slab (examples/_data.ckpfm_slab, the
+# the suite calls it: the 10x10x64x5 slab (_data.ckpfm_slab, the
 # synthetic field: no expdata on the machine), float32 by the card's
 # default. A full grid with no NaNs, n = 32000: the exact Kronecker route.
 CKPFM = dict(kernel="Matern52", ski=True, grid_points_ratio=1.0,
@@ -298,14 +326,14 @@ def log(msg):
 # ---------------------------------------------------------------------------
 
 def flagship_data():
-    import _data
+    from gpim_tpu_torch.examples import _data
     from gpim_tpu_torch import utils
     R = _data.spiral_scan()
     return R, utils.get_sparse_grid(R), utils.get_full_grid(R)
 
 
 def vfe_data():
-    import _data
+    from gpim_tpu_torch.examples import _data
     from gpim_tpu_torch import utils
     R = _data.bepfm_cube(sparse=True)
     return R, utils.get_sparse_grid(R), utils.get_full_grid(R), \
@@ -335,7 +363,7 @@ def eels6_data():
     """benchmarks/suite.py:254-262: the BEPFM cube band-averaged into 6
     channels, normalised, half its 32x32 pixels removed; the test grid 2x
     denser (64x64)."""
-    import _data
+    from gpim_tpu_torch.examples import _data
     from gpim_tpu_torch import utils
     cube = _data.bepfm_cube()
     bands = np.stack([cube[:, :, i * 15:(i + 1) * 15].mean(-1)
@@ -384,7 +412,7 @@ def small_vector_data(seed=0):
 
 def ckpfm_data():
     """benchmarks/suite.py:281-283: the cKPFM slab and its full grid."""
-    import _data
+    from gpim_tpu_torch.examples import _data
     from gpim_tpu_torch import utils
     R = _data.ckpfm_slab()
     return R, utils.get_full_grid(R)
@@ -1461,22 +1489,34 @@ def phase_bo(R, X, X_full):
     card against the CPU.
     Returns (warm launches by path, warm records, the bo25 EI optimizer
     and the spiral one, for the profile)."""
-    import _data
+    import torch
+    from gpim_tpu_torch.examples import _data
     from gpim_tpu_torch import boptimizer
     _check_tie_order()
     grid, Xs, Xf, truth = bo25_data()
     seed25 = (grid, Xs, Xf)
     paths, rows = {}, {}
-    for label, kw in BO25_ROWS.items():
+    # at the surrogate's default precision (float64 on the card), and
+    # bo25_ei_explore also at precision="single"
+    for label, kw in list(BO25_ROWS.items()) + [
+            ("bo25_ei_explore_f32", dict(BO25_ROWS["bo25_ei_explore"],
+                                         precision="single"))]:
         kw = dict(kw, gp_iterations=BO25_ITERATIONS)
         target = bo25_target
         if kw.get("simulate_measurement"):
             kw["y_true"], target = truth, None
-        _run_bo(label + " f32 cold", seed25, target, **kw)
-        bo, rows[label] = _run_bo(label + " f32 warm", seed25, target, **kw)
+        _run_bo(label + " cold", seed25, target, **kw)
+        bo, rows[label] = _run_bo(label + " warm", seed25, target, **kw)
         paths[label] = rows[label]["launches"]
+        want = torch.float32 if "precision" in kw else torch.float64
+        if bo.surrogate_model.dtype != want:
+            raise AssertionError("%s: the surrogate is %s, not %s" % (
+                label, bo.surrogate_model.dtype, want))
         if label == "bo25_ei_explore":
             bo25 = bo
+    log("[bo] bo25_ei_explore warm: %.3f s at the default (float64), %.3f s "
+        "at precision=\"single\"" % (rows["bo25_ei_explore"]["wall_s"],
+                                      rows["bo25_ei_explore_f32"]["wall_s"]))
     # the gates of benchmarks/suite.py:156-159,203-206
     sim = rows["bo25_ei_sim_device"]
     if not sim["best_found"] >= 0.95:
@@ -1488,34 +1528,40 @@ def phase_bo(R, X, X_full):
                              "steps" % (batch["points"], batch["steps"]))
 
     # full width: the spiral scan as the seed, the field it masks as the
-    # measurement. Float64 at the BO's default jitter (1e-6): in float32
-    # the Cholesky of this n = 6144 system fails (LinAlgError) even at the
-    # reconstructor's float32 jitter, 1e-4, once EI measures inside the
-    # scan's gaps at the learned lengthscale of ~10 pixels - its round-off,
-    # ~n * eps * |A| = 4e-4, exceeds noise + jitter there
+    # measurement, at the surrogate's default precision, float64, and the
+    # BO's default jitter (1e-6): in float32 the Cholesky of this n = 6144
+    # system fails (LinAlgError) even at the reconstructor's float32
+    # jitter, 1e-4, once EI measures inside the scan's gaps at the learned
+    # lengthscale of ~10 pixels - its round-off, ~n * eps * |A| = 4e-4,
+    # exceeds noise + jitter there
     # (tests/test_torch_boptim.py::test_float32_spiral_bo_fails_its_cholesky
-    # pins it). The card runs float64 at the flagship's float32 speed
-    # (PERF.md). The device step runs it, then the host loop (EI on the
-    # host, through a callable), which must select the same points.
+    # pins it at precision="single"). The device step runs it, then the
+    # host loop (EI on the host, through a callable), which must select
+    # the same points.
     y128 = _data._smooth_field((128, 128), sigma=(6.0, 6.0), seed=0)
     spiral = {}
     for path in ("device step", "host loop"):
-        kw = dict(SPIRAL_BO, y_true=y128, precision="double")
+        kw = dict(SPIRAL_BO, y_true=y128)
         if path == "host loop":
             kw["acquisition_function"] = _host_ei
         spiral[path], rec = _run_bo("spiral_bo %s" % path, (R, X, X_full),
                                     None, **kw)
         _check_path("spiral_bo", rec, path)
+        if spiral[path].surrogate_model.dtype != torch.float64 or \
+                spiral[path].steps_done != SPIRAL_BO["exploration_steps"]:
+            raise AssertionError("spiral_bo %s: not a float64 run to its "
+                                 "end at the default precision" % path)
         key = "spiral_bo" + ("" if path == "device step" else "_host_loop")
         rows[key], paths[key] = rec, rec["launches"]
     _same_selection("spiral_bo, device step vs host loop",
                     spiral["device step"], spiral["host loop"])
 
-    # a sparse (VFE) surrogate at the default precision, then in float64
-    # on both paths, which must select the same points (float64: far from
-    # the seeds many float32 predictions tie, and the host's ranking puts
-    # ties in another order than the device's)
-    kw = dict(BO_VFE, gp_iterations=BO25_ITERATIONS, y_true=truth)
+    # a sparse (VFE) surrogate in float32, then in float64 on both paths,
+    # which must select the same points (float64: far from the seeds many
+    # float32 predictions tie, and the host's ranking puts ties in another
+    # order than the device's)
+    kw = dict(BO_VFE, gp_iterations=BO25_ITERATIONS, y_true=truth,
+              precision="single")
     _, rows["bo25_vfe"] = _run_bo("bo25_vfe", seed25, None, **kw)
     paths["bo25_vfe"] = rows["bo25_vfe"]["launches"]
     vfe = {}
@@ -2073,14 +2119,18 @@ def _run_mgrid(label, R, truth, iterations, **kwargs):
     return model, mean, sd, hp, rec
 
 
-def _mgrid_gates(label, model, mean, sd, R, truth, rng, rec):
+def _mgrid_gates(label, model, mean, sd, R, truth, rng, rec, quality=True):
     """Every gate benchmarks/suite.py:369-446 raises on, drawn from the
     suite's generator in its order: rmse and the disagreement with an exact
     GP trained on 4000 observed points (reconstructor, 200 iterations) at
     2000 observed cells below 0.15 data sd; 1-sigma coverage >= 0.55 at
     2000 observed and 2000 unobserved cells; model sd^2 >= 0.8 of the exact
     posterior variance (ski.mgrid_exact_var_probe, 512 CG iterations at the
-    model's preconditioner rank) at 32 observed and 32 unobserved cells."""
+    model's preconditioner rank) at 32 observed and 32 unobserved cells.
+    With ``quality`` False the rmse and the exact-4k cross-check are
+    printed and only the variance gates raise: those two gates hold for
+    the suite's smooth analytic cube, not for a rough random field
+    (large_masked_ski --xl), whose own rmse gate the caller applies."""
     import torch
     from gpim_tpu_torch import reconstructor
     from gpim_tpu_torch.gpreg.multi import _constrain_task
@@ -2137,12 +2187,14 @@ def _mgrid_gates(label, model, mean, sd, R, truth, rng, rec):
                 "sd2_vs_exact_ratio_min": float(ratio.min()),
                 "sd2_vs_exact_ratio_median": float(np.median(ratio)),
                 "var_probe_s": probe_s})
-    log("[mgrid] %-27s gates: rmse %.5f and exact-4k xcheck %.5f (< %.5f), "
+    log("[mgrid] %-27s gates: rmse %.5f and exact-4k xcheck %.5f (< %.5f%s), "
         "coverage obs %.3f unobs %.3f (>= 0.55), sd^2 / exact var min %.3f "
         "median %.3f (>= 0.8); exact GP %.2f s, variance probe %.2f s"
-        % (label, rec["rmse_vs_truth"], dis, 0.15 * sd_data, cov_obs,
+        % (label, rec["rmse_vs_truth"], dis, 0.15 * sd_data,
+           "" if quality else ", not gated", cov_obs,
            cov_uno, ratio.min(), np.median(ratio), ex_s, probe_s))
-    if not (rec["rmse_vs_truth"] < 0.15 * sd_data and dis < 0.15 * sd_data):
+    if quality and not (rec["rmse_vs_truth"] < 0.15 * sd_data
+                        and dis < 0.15 * sd_data):
         raise AssertionError("%s quality gate failed: rmse %.4f, xcheck "
                              "%.4f at data sd %.4f" % (
                                  label, rec["rmse_vs_truth"], dis, sd_data))
@@ -2203,12 +2255,88 @@ def _time_mgrid_ops(model):
     return out
 
 
+def _warm_start_rows(label, R, iters, **kwargs):
+    """The masked-lattice engine of ``R``'s model trained ``iters`` steps
+    from the model's initial parameters, cold and then warm-started
+    (MaskedGridEngine.train(warm_start=True), gpim_tpu's experimental
+    option, off skreconstructor's surface): each one's wall, realized CG
+    iterations a step, segments and K1 launches (d (steps + segments)),
+    and the final lengthscales' largest relative gap."""
+    import torch
+    from gpim_tpu_torch import skreconstructor, utils
+    model = skreconstructor(utils.get_sparse_grid(R), R,
+                            utils.get_full_grid(R), iterations=iters,
+                            verbose=0, **dict(MGRID, **kwargs))
+    eng = model._mgrid_engine
+    if eng is None:
+        raise AssertionError("%s did not take the masked-lattice route"
+                             % label)
+    u0 = {k: v[0] for k, v in model.u.items()}
+    recs = {}
+    for tag in ("cold", "warm"):
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        _, traj = eng.train(u0, model._bounds(), model.learning_rate,
+                            model.jitter, iterations=iters,
+                            record_cg_iters=True, warm_start=tag == "warm")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        expected = len(eng.grid_shape) * (iters + len(eng.last_segments))
+        recs[tag] = {"train_s": wall,
+                     "cg_iters": [int(i) for i in eng.last_cg_iters],
+                     "segments": list(eng.last_segments),
+                     "launches": launches,
+                     "ls": traj["lengthscale"][-1].cpu().numpy().tolist()}
+        log("[mgrid] %-27s %s start: train %.3f s, realized CG iterations "
+            "a step %s (%d in all), segments %s, launches %s" % (
+                label, tag, wall, recs[tag]["cg_iters"],
+                sum(recs[tag]["cg_iters"]), recs[tag]["segments"], launches))
+        if launches != {"sqdist": expected, "masked_system": 0,
+                        "rbf_bwd_reductions": 0}:
+            raise AssertionError("%s %s start: launches %s, the code implies "
+                                 "K1 %d" % (label, tag, launches, expected))
+        if not np.isfinite(traj["loss"].cpu().numpy()).all():
+            raise AssertionError("%s %s start: a loss is not finite"
+                                 % (label, tag))
+    ls_c, ls_w = (np.asarray(recs[t]["ls"]) for t in ("cold", "warm"))
+    recs["ls_rgap"] = float(np.max(np.abs(ls_w - ls_c) / np.abs(ls_c)))
+    log("[mgrid] %-27s warm start against cold: final lengthscale %s "
+        "against %s, largest relative gap %.3e; train %.3f s against %.3f s"
+        % (label, np.array2string(ls_w, precision=4),
+           np.array2string(ls_c, precision=4), recs["ls_rgap"],
+           recs["warm"]["train_s"], recs["cold"]["train_s"]))
+    return model, recs
+
+
+def _memory_analysis(label, model):
+    """MaskedGridEngine.train_memory_analysis at the row's iterations: the
+    measured peak of a training run beside the analytic model."""
+    eng = model._mgrid_engine
+    out = eng.train_memory_analysis(
+        {k: v[0] for k, v in model.u.items()}, model._bounds(),
+        model.learning_rate, model.jitter, iterations=model.iterations)
+    analytic = sum(out["analytic_bytes"].values())
+    log("[mgrid] %-27s train_memory_analysis (%d steps): peak allocated "
+        "%.3f GiB (%.3f GiB held before), the analytic model's buffers "
+        "%.3f GiB: %s" % (
+            label, model.iterations, out["peak_allocated_bytes"] / 2 ** 30,
+            out["allocated_before_bytes"] / 2 ** 30, analytic / 2 ** 30,
+            json.dumps(out["analytic_bytes"])))
+    if not out["peak_allocated_bytes"] >= analytic:
+        raise AssertionError("%s: the measured peak is below the analytic "
+                             "model's buffers" % label)
+    return out
+
+
 def phase_mgrid():
     """The three masked-lattice rows of benchmarks/suite.py with their
-    gates, ski_masked64x64x32 in float64 against float32, and small
-    problems card against CPU in float64. Returns (the warm runs' launches
-    by path, the 1M row's warm model, ski_masked64x64x32's
-    rmse_vs_truth)."""
+    gates, ski_masked64x64x32 in float64 against float32, the warm-started
+    CG beside the cold one on ski_masked64x64x32 and the 1M row, the 1M
+    engine's memory accounting, and small problems card against CPU in
+    float64. Returns (the warm runs' launches by path, the 1M row's warm
+    model, ski_masked64x64x32's rmse_vs_truth)."""
     import torch
     from gpim_tpu_torch import dtypes, utils
     paths, recs = {}, {}
@@ -2249,6 +2377,8 @@ def phase_mgrid():
             raise AssertionError("ski_masked64 f32 vs f64 %s %.3e > %.0e"
                                  % (k, diffs[k], lim))
     del m32
+    _, recs["ski_masked64x64x32_warm_start"] = _warm_start_rows(
+        "ski_masked64x64x32", R, iters, ski=True)
 
     for row in ("mgrid_masked128x128x64", "mgrid_masked256x256x64"):
         shape, iters = MGRID_ROWS[row]
@@ -2266,7 +2396,12 @@ def phase_mgrid():
         if row == "mgrid_masked128x128x64":
             recs[row]["ops"] = _time_mgrid_ops(model)
             model_1m = model
-        del model, mean, sd
+            del model, mean, sd
+            fresh, recs[row + "_warm_start"] = _warm_start_rows(row, R, iters)
+            recs[row + "_memory"] = _memory_analysis(row, fresh)
+            del fresh
+        else:
+            del model, mean, sd
         torch.cuda.empty_cache()
 
     # small problems in float64: the card against the CPU
@@ -2551,6 +2686,259 @@ def phase_ski_profile(model):
                     host_keys=("aten::linalg_eigh", "aten::index_add_"))
 
 
+# ---------------------------------------------------------------------------
+# the example runners (gpim_tpu_torch/examples) and the trace
+# ---------------------------------------------------------------------------
+
+def _gpr_expected(model, n_test):
+    """Kernel launches a reconstructor run implies. Exact RBF: K2 and K3
+    each Adam step, K1 for the training Gram and once a 4096-point test
+    chunk; VFE: K1 for Kmm and Kmn each Adam step, both once more and once
+    a chunk in predict."""
+    steps = int(model.iterations)
+    n_chunks = -(-n_test // 4096)
+    if model.do_sparse:
+        return {"sqdist": 2 * steps + 2 + n_chunks, "masked_system": 0,
+                "rbf_bwd_reductions": 0}
+    if model.kernel_type != "RBF":
+        raise ValueError("no launch count for an exact %s run"
+                         % model.kernel_type)
+    return {"sqdist": 1 + n_chunks, "masked_system": steps,
+            "rbf_bwd_reductions": steps}
+
+
+def _example_inputs(name, xl=False):
+    """The runner's default data, made before its timed run."""
+    mod = importlib.import_module("gpim_tpu_torch.examples." + name)
+    if name == "large_masked_ski":
+        return {"cube": mod.make_cube(mod.SHAPE_XL if xl else mod.SHAPE)}
+    key = {"sparse_image_2d": "R", "hyperspectral_3d_sparse": "cubes",
+           "eels_parallel_gp": "bands", "ckpfm_4d_ski": "R",
+           "bayesian_optimization": "Z_sparse"}[name]
+    return {key: mod.data()}
+
+
+def _run_example(name, outdir, xl=False):
+    """One runner's run() at its script's budget on the card (its default
+    device), with its data made beforehand; returns (its output, the
+    record: wall, train and predict s, peak GiB, launches against the
+    counts its code implies)."""
+    import torch
+    mod = importlib.import_module("gpim_tpu_torch.examples." + name)
+    inputs = _example_inputs(name, xl)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = mod.run(outdir=outdir, **inputs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    rec = {"wall_s": wall, "peak_gib": torch.cuda.max_memory_allocated()
+           / 2 ** 30, "launches": launches, "iterations": mod.ITERATIONS}
+    if name == "bayesian_optimization":
+        bo = out["bo"]
+        expected = _bo_expected(bo)
+        model = bo.surrogate_model
+        rec.update(steps=bo.steps_done, steps_per_s=bo.steps_done / wall,
+                   best_found=out["best_found"])
+    else:
+        model = out["model"]
+        ph = model.timer.phases
+        rec.update(train_s=ph["train"]["first_s"],
+                   predict_s=ph["predict"]["first_s"])
+        n_test = int(out["mean"].size // (out["mean"].shape[-1]
+                                          if name == "eels_parallel_gp"
+                                          else 1))
+        if name == "eels_parallel_gp":
+            expected = _multi_expected(model, n_test)
+        elif name in ("sparse_image_2d", "hyperspectral_3d_sparse"):
+            expected = _gpr_expected(model, n_test)
+        else:
+            expected = _sk_expected(model, n_test)
+        if name == "ckpfm_4d_ski":
+            # the 2x-dense predict: K1 once a factor and once a factor a
+            # chunk of its cross rows
+            d = len(model._kron_engine.dims)
+            n2 = int(out["mean2x"].size)
+            expected["sqdist"] += d * (1 + -(-n2 // SK_CHUNK))
+            rec["predict2x_s"] = ph["predict"]["warm_s"][0]
+    if model.device.type != "cuda":
+        raise AssertionError("%s ran on %s, not the card"
+                             % (name, model.device))
+    rec["expected"] = expected
+    if launches != expected:
+        raise AssertionError("%s: launches %s, the code implies %s"
+                             % (name, launches, expected))
+    return out, rec
+
+
+def phase_examples():
+    """Each of the six runners' run() once, warm (every kernel is built by
+    now), at its script's full budget on the card, and large_masked_ski
+    also at --xl: wall, train and predict s, peak memory, the quality
+    number its script prints, launches against the counts its code
+    implies, and the gates of the matching suite row or phase: flagship
+    rmse_obs < 0.1, VFE rmse_vs_truth < 0.1, ckpfm rmse_fit < 0.1, the
+    masked 64^3 cube's rmse_vs_truth < 0.75 data sd (phase mgrid's), at
+    --xl also the 1M row's variance gates; eels and the BO, which their
+    scripts gate on nothing, finite output of the expected shape. Results
+    and the BO's checkpoint go to a temporary directory, removed at the
+    end. Returns the launches by path."""
+    import shutil
+    import tempfile
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    paths, recs = {}, {}
+    try:
+        for name, xl in (("sparse_image_2d", False),
+                         ("hyperspectral_3d_sparse", False),
+                         ("eels_parallel_gp", False), ("ckpfm_4d_ski", False),
+                         ("large_masked_ski", False),
+                         ("large_masked_ski", True),
+                         ("bayesian_optimization", False)):
+            label = name + (" --xl" if xl else "")
+            out, rec = _run_example(name, outdir, xl)
+            if name == "bayesian_optimization":
+                steps = out["bo"].exploration_steps
+                ok = (rec["steps"] == steps
+                      and out["indices"].shape == (steps, 2)
+                      and np.isfinite(out["best_found"])
+                      and os.path.exists(os.path.join(
+                          outdir, "boptim_results.npy")))
+                number = ("best_found", out["best_found"], None)
+            else:
+                mean, sd = out["mean"], out["sd"]
+                data = out["Y"] if name == "eels_parallel_gp" else out["R"]
+                # eels predicts on a 2x denser (x, y) grid
+                shape = ((2 * data.shape[0], 2 * data.shape[1])
+                         + data.shape[2:] if name == "eels_parallel_gp"
+                         else data.shape)
+                ok = (mean.shape == sd.shape == shape
+                      and np.isfinite(mean).all() and np.isfinite(sd).all())
+                if name == "ckpfm_4d_ski":
+                    ok = ok and out["mean2x"].shape == tuple(
+                        2 * n for n in data.shape) \
+                        and np.isfinite(out["mean2x"]).all() \
+                        and np.isfinite(out["sd2x"]).all()
+                if name == "large_masked_ski":
+                    rec["data_sd"] = float(np.nanstd(out["R"]))
+                number = {
+                    "sparse_image_2d": ("rmse_obs", out.get("rmse_obs"), 0.1),
+                    "hyperspectral_3d_sparse": (
+                        "rmse_vs_truth", out.get("rmse_vs_truth"), 0.1),
+                    "eels_parallel_gp": ("rmse_vs_bands",
+                                         out.get("rmse_vs_bands"), None),
+                    "ckpfm_4d_ski": ("rmse_fit", out.get("rmse_fit"), 0.1),
+                    "large_masked_ski": (
+                        "rmse_vs_truth", out.get("rmse_vs_truth"),
+                        0.75 * rec.get("data_sd", 0.0)),
+                }[name]
+            rec[number[0]] = number[1]
+            extra = ""
+            if name == "hyperspectral_3d_sparse":
+                extra = ", mean abs error %.5f" % out["mae"]
+            if name == "ckpfm_4d_ski":
+                extra = ", 2x-dense predict %.3f s" % rec["predict2x_s"]
+            eng = getattr(out.get("model"), "_mgrid_engine", None)
+            if eng is not None:
+                rec["cg_iters"] = [int(i) for i in eng.last_cg_iters]
+                rec["segments"] = list(eng.last_segments)
+                extra = ", realized CG iterations a step %s, segments %s" % (
+                    rec["cg_iters"], rec["segments"])
+            log("[examples] %-26s wall %.3f s, train %s s, predict %s s, "
+                "peak %.2f GiB, %s %.5f%s, launches %s (the code implies "
+                "%s)%s" % (
+                    label, rec["wall_s"], _fmt(rec.get("train_s")),
+                    _fmt(rec.get("predict_s")), rec["peak_gib"], number[0],
+                    number[1], "" if number[2] is None
+                    else " (gate < %.5f)" % number[2], rec["launches"],
+                    rec["expected"], extra))
+            if not ok:
+                raise AssertionError("%s: output not finite or of the wrong "
+                                     "shape" % label)
+            if number[2] is not None and not number[1] < number[2]:
+                raise AssertionError("%s: %s %.5f >= %.5f"
+                                     % (label, number[0], number[1],
+                                        number[2]))
+            if name == "large_masked_ski" and xl:
+                R, truth = out["R"], out["truth"]
+                model = out["model"]
+                if model._mgrid_engine is None:
+                    raise AssertionError("%s did not take the masked-lattice "
+                                         "route" % label)
+                _mgrid_gates(label, model, out["mean"], out["sd"], R, truth,
+                             np.random.RandomState(0), rec, quality=False)
+            key = "ex_" + name + ("_xl" if xl else "")
+            recs[key], paths[key] = rec, rec["launches"]
+            del out
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    log("[examples] records: " + json.dumps(recs))
+    return paths
+
+
+def _fmt(x):
+    return "-" if x is None else "%.3f" % x
+
+
+def phase_trace(R, X, X_full):
+    """utils.profiling.trace around a warm flagship run of PROFILE_STEPS
+    training steps and its predict: the exported Chrome trace must hold
+    K1, K2 and K3 among its CUDA kernel events as often as the run
+    launched them (K2 = K3 = the steps, K1 = 1 + 4 chunks); the same run
+    untraced beside it, for the instrumentation's cost."""
+    import glob
+    import shutil
+    import tempfile
+    import torch
+    from gpim_tpu_torch import reconstructor
+    from gpim_tpu_torch.utils.profiling import trace
+    model = reconstructor(X, R, X_full, kernel="RBF", precision="single",
+                          iterations=PROFILE_STEPS, verbose=0)
+    expected = _gpr_expected(model, int(X_full[0].size))
+    walls = {}
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        for tag in ("untraced", "traced"):
+            torch.cuda.synchronize()
+            _reset_launches()
+            t0 = time.perf_counter()
+            if tag == "traced":
+                with trace(logdir):
+                    model.run()
+                    torch.cuda.synchronize()
+            else:
+                model.run()
+                torch.cuda.synchronize()
+            walls[tag] = time.perf_counter() - t0
+            if _read_launches() != expected:
+                raise AssertionError("trace: launches %s, the code implies "
+                                     "%s" % (_read_launches(), expected))
+        files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        if len(files) != 1:
+            raise AssertionError("trace: %d trace files in %s"
+                                 % (len(files), logdir))
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(files[0])
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {name: sum(k in n for n in kernels) for k, name in (
+        ("sqdist_kernel", "sqdist"),
+        ("masked_system_kernel", "masked_system"),
+        ("rbf_bwd_kernel", "rbf_bwd_reductions"))}
+    log("[trace] flagship, %d steps and predict: %.3f s untraced, %.3f s in "
+        "utils.profiling.trace; the trace (%.1f MB) holds %d CUDA kernel "
+        "events, of them K1/K2/K3 %s (the run launched %s)" % (
+            PROFILE_STEPS, walls["untraced"], walls["traced"], size / 1e6,
+            len(kernels), found, expected))
+    if found != expected:
+        raise AssertionError("trace: kernel events %s, the run launched %s"
+                             % (found, expected))
+    return walls
+
+
 def kernel_records(kreport, paths):
     """The kernels line; ``paths`` maps each main path to its warm run's
     launch counts, and ``launches`` is their sum."""
@@ -2623,10 +3011,14 @@ def main():
     phase_ski_profile(model_ski)
     phase_bo_profile("bo25_ei_explore", bo25)
     phase_bo_profile("spiral_bo", spiral_bo)
+    del model_1m, model_ski, bo25, spiral_bo
+    torch.cuda.empty_cache()
+    ex_paths = phase_examples()
+    phase_trace(R, X, X_full)
     print(json.dumps({"kernels": kernel_records(
         kreport, {"flagship": launches, "vfe": vfe_launches, **bo_paths,
                   **multi_paths, **sk_paths, **mgrid_paths,
-                  **ski_paths})}),
+                  **ski_paths, **ex_paths})}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

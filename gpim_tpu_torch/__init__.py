@@ -5,19 +5,23 @@ gpim_tpu_torch
 PyTorch/CUDA port of ``gpim_tpu`` for one NVIDIA H100 (Hopper). The JAX
 package is the reference; this package carries its five public names:
 
-- ``utils``          : NaN-masked grid preparation (numpy)
+- ``utils``          : NaN-masked grid preparation (numpy) and plotting
 - ``reconstructor``  : exact and inducing-point (VFE, ``sparse=True``) GP
                        regression of 2D images / 3D grids, and its
                        exploration ``step()``
 - ``skreconstructor``: structured-kernel GP regression of 2D-4D grids: the
-                       dense exact route, the spectral mixture kernel and
-                       exact Kronecker inference on full grids (the
-                       masked-lattice and off-lattice SKI routes are not
-                       ported yet)
+                       dense exact route, the spectral mixture kernel,
+                       exact Kronecker inference on full grids, and SKI on
+                       NaN-masked lattices and on points off a lattice
 - ``vreconstructor`` : multi-output GP regression (independent "parallel"
                        channels, or the correlated Kronecker multitask model)
 - ``boptimizer``     : GP-based Bayesian optimisation of the next
                        measurement point(s) on a grid
+
+``gpim_tpu_torch.examples`` holds the six example workflows as runners
+(``python -m gpim_tpu_torch.examples.sparse_image_2d``; ``--cpu`` for the
+CPU). Plotting (``utils.plot_*``) needs matplotlib, which is imported on
+the first use of a plot function and never by ``import gpim_tpu_torch``.
 
 Plain tensor code is PyTorch; the three kernels that ``gpim_tpu`` wrote in
 Pallas are hand-written CUDA for Hopper (``gpim_tpu_torch/csrc``), each

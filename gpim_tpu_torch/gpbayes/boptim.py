@@ -98,6 +98,17 @@ def _device_bo_step(u0, Xd, yd, maskd, bounds, lr, jitter, chunks,
     return u, traj, mean, sd, macq
 
 
+def _surrogate_precision(precision):
+    """The surrogate's precision: ``precision`` when the caller gives one,
+    else "double" on every device. The reference GPim trains in float64
+    (gpr.py:92-99); ``gpim_tpu`` defaults to single on its accelerator only
+    because float64 is emulated and slow on a TPU, which the card does not
+    do. In float32 a BO seeded with the 128x128 spiral scan fails a refit's
+    Cholesky (n = 6144): once EI measures inside the scan's gaps, noise +
+    jitter fall below the float32 factorisation's round-off."""
+    return "double" if precision is None else precision
+
+
 def _atomic_save(filename, obj, allow_pickle=False):
     """np.save via temp-file + os.replace: a crash mid-write must never
     truncate the only resume state of a long-running experiment."""
@@ -116,7 +127,8 @@ class boptimizer:
     exploration_steps, batch_size, batch_update, kernel, lengthscale,
     sparse/indpoints, gp_iterations, seed, and kwargs: alpha, beta, xi,
     use_gpu (default True: the surrogate runs on the CUDA device and raises
-    without one; False: the CPU), precision, jitter, isotropic, mask,
+    without one; False: the CPU), precision (None: "double" on every
+    device, see :func:`_surrogate_precision`), jitter, isotropic, mask,
     dscale, batch_dscale, batch_out_max, gamma, memory, exit_strategy,
     extent, simulate_measurement, y_true, save_checkpoints, filename,
     verbose, learning_rate, device_loop (accepted for gpim_tpu's
@@ -146,7 +158,7 @@ class boptimizer:
                  seed=0,
                  **kwargs):
         self.verbose = kwargs.get("verbose", 1)
-        self.precision = kwargs.get("precision")
+        self.precision = _surrogate_precision(kwargs.get("precision"))
 
         # the reference passes use_gpu=False positionally here and the JAX
         # package ignores it; the port honours it, so it defaults to the card

@@ -423,12 +423,18 @@ def adam_steps(loss_info, u0, lr, iterations, factors=("",)):
     return {k: v.detach() for k, v in u.items()}, u_traj, losses
 
 
-def adam_segments(u0, lr, iterations, build_precond, loss_iters):
+def adam_segments(u0, lr, iterations, build_precond, loss_iters,
+                  carry0=None):
     """Adam in training segments between preconditioner rebuilds, the host
     loop of the SKI engines (gpim_tpu/gpreg/mgrid_model.py:596-642,
     gpim_tpu/gpreg/ski_model.py:209-245). ``build_precond(u)`` returns the
     preconditioner a segment uses and ``loss_iters(u, precond)`` the loss
-    and its realized CG iterations. A segment of 2 steps comes first, then
+    and its realized CG iterations. With ``carry0``, a step also carries a
+    state within a segment: ``loss_iters(u, precond, carry)`` returns (loss,
+    iterations, next carry), and each segment starts from ``carry0()`` (the
+    warm-started CG's solutions, reset where the basis is rebuilt, as
+    gpim_tpu's ``_train_seg`` starts each segment from zeros). A segment
+    of 2 steps comes first, then
     each is twice as long (up to 10) while the last step needed
     at most 8 CG iterations, and half as long (at least 2) when it needed 16
     or more; the host reads that one value a segment.
@@ -452,9 +458,13 @@ def adam_segments(u0, lr, iterations, build_precond, loss_iters):
     while i < iterations:
         s = min(s_next, iterations - i)
         precond = build_precond(u)
+        carry = None if carry0 is None else carry0()
         for _ in range(s):
             opt.zero_grad(set_to_none=True)
-            loss, it = loss_iters(u, precond)
+            if carry0 is None:
+                loss, it = loss_iters(u, precond)
+            else:
+                loss, it, carry = loss_iters(u, precond, carry)
             loss.backward()
             opt.step()
             with torch.no_grad():

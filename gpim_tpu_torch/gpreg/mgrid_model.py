@@ -25,12 +25,18 @@ Prediction on a Cartesian test grid uses exact per-dimension
 cross-covariances and the Nystrom variance of the same eigen-root; scattered
 test points go through the per-point cross rows in chunks of up to 4096.
 
+``MaskedGridEngine.train(warm_start=True)`` is ``gpim_tpu``'s experimental
+warm-started CG (off the public ``skreconstructor`` surface there as here):
+within a segment each step's solve starts from the previous step's
+solutions. ``train_memory_analysis`` gives ``gpim_tpu``'s analytic model of
+the dominant buffers beside, on CUDA, the measured peak of a training run
+(``gpim_tpu`` compiles its fused program and reads XLA's accounting).
+
 Not carried from ``gpim_tpu``, each a TPU artefact: the 128-multiple pad
-dodge (``pad_dodge``, ``GPIM_TPU_PAD_DODGE``) and its non-finite check, the
-fused whole-training device program (``_train_fused``, ``_FUSED_MAX_G``;
-eager PyTorch has the one host segment loop with the same schedule), and
-the compile-only memory accounting (``train_memory_analysis``). Not ported
-yet: ``mesh=`` and the experimental warm-started CG.
+dodge (``pad_dodge``, ``GPIM_TPU_PAD_DODGE``) and its non-finite check, and
+the fused whole-training device program (``_train_fused``, ``_FUSED_MAX_G``;
+eager PyTorch has the one host segment loop with the same schedule). Not
+ported yet: ``mesh=``.
 """
 
 import math
@@ -119,14 +125,20 @@ def cartesian_axes_from_points(X_flat, dims, rtol=1e-6):
 # --------------------------------------------------------------------------
 
 def _loss(u, axes, mask_flat, g0, Qp, lam_n, y_flat, bounds, jitter, *,
-          kernel, grid_shape, cg_iters, record_iters=False):
+          kernel, grid_shape, cg_iters, record_iters=False, X0=None):
     """The masked-lattice MAP objective (gpim_tpu mgrid_model.py:134-169):
     :func:`ski_model._loss` over the masked operator and all G cells, whose
     masked cells are noise-only rows as padded rows are there; with
-    ``record_iters`` also the realized CG iterations."""
-    core = ski.ski_mll_from_mvm(
-        ski.make_masked_grid_mvm(grid_shape, mask_flat, batch_first=True),
-        cg_iters, g0, return_iters=True)
+    ``record_iters`` also the realized CG iterations. With ``X0`` the
+    warm-started objective (mgrid_model.py:190-218): the solve starts from
+    the split-space block ``X0`` and, with ``record_iters``, the second
+    output is (the solutions, the realized CG iterations)."""
+    mvm = ski.make_masked_grid_mvm(grid_shape, mask_flat, batch_first=True)
+    if X0 is None:
+        core = ski.ski_mll_from_mvm(mvm, cg_iters, g0, return_iters=True)
+    else:
+        core_ws = ski.ski_mll_from_mvm(mvm, cg_iters, g0, warm_start=True)
+        core = lambda *args: core_ws(*args, X0)  # noqa: E731
     return ski_model._loss(u, axes, core, Qp, lam_n, y_flat, mask_flat,
                            bounds, jitter, kernel=kernel,
                            record_iters=record_iters)
@@ -228,21 +240,38 @@ class MaskedGridEngine:
         self.last_segments = []
 
     def train(self, u0, bounds, lr, jitter, *, iterations,
-              record_cg_iters=False):
+              record_cg_iters=False, warm_start=False):
         """Adam on the masked-lattice objective with the adaptive rebuild
         schedule; returns (final u, trajectory of lengthscale (iters, d),
         noise and loss (iters,)[, cg_iters (iters,)]). The Adam moments
         carry across segments; the trajectory holds the post-update
-        hyperparameters and the pre-update loss of every step."""
+        hyperparameters and the pre-update loss of every step.
+
+        ``warm_start`` (experimental): each step's CG starts from the
+        previous step's split-space solutions, from zeros at each segment's
+        start (where the preconditioner is rebuilt); the gradients are the
+        cold ones up to the CG tolerance, the recorded loss's
+        log-determinant is biased (:func:`ski.ski_mll_from_mvm`)."""
+        kw = dict(kernel=self.kernel, grid_shape=self.grid_shape,
+                  cg_iters=self.cg_iters, record_iters=True)
+        build = lambda u: _build_precond(  # noqa: E731
+            u, self._axes, self._mask, bounds, kernel=self.kernel,
+            rank=self.precond_rank)
+        if warm_start:
+            def loss_iters(u, pre, X):
+                loss, (X_new, it) = _loss(u, self._axes, self._mask,
+                                          self._g0, *pre, self._y, bounds,
+                                          jitter, X0=X, **kw)
+                return loss, it, X_new
+            carry0 = lambda: self._g0.new_zeros(  # noqa: E731
+                (self._g0.shape[0] + 1, self._g0.shape[1]))
+        else:
+            def loss_iters(u, pre):
+                return _loss(u, self._axes, self._mask, self._g0, *pre,
+                             self._y, bounds, jitter, **kw)
+            carry0 = None
         u, u_traj, losses, its, segments = engine.adam_segments(
-            u0, lr, int(iterations),
-            lambda u: _build_precond(u, self._axes, self._mask, bounds,
-                                     kernel=self.kernel,
-                                     rank=self.precond_rank),
-            lambda u, pre: _loss(u, self._axes, self._mask, self._g0, *pre,
-                                 self._y, bounds, jitter, kernel=self.kernel,
-                                 grid_shape=self.grid_shape,
-                                 cg_iters=self.cg_iters, record_iters=True))
+            u0, lr, int(iterations), build, loss_iters, carry0)
         with torch.no_grad():
             p = _constrain(u_traj, bounds)
         traj = {"lengthscale": p["lengthscale"], "noise": p["noise"],
@@ -252,6 +281,48 @@ class MaskedGridEngine:
         if record_cg_iters:
             traj["cg_iters"] = its
         return u, traj
+
+    def train_memory_analysis(self, u0, bounds, lr, jitter, *,
+                              iterations=30):
+        """Memory accounting of training at this engine's shapes
+        (gpim_tpu mgrid_model.py:501-548): the grid's sizes, the analytic
+        model of the dominant buffers in bytes (the (p + 1, G) CG state
+        four times, the probe block, the grid vectors, the factored
+        preconditioner, the trajectory) and, on CUDA, the measured peak of
+        the device's allocated bytes over a training run of ``iterations``
+        steps (``peak_allocated_bytes``; ``allocated_before_bytes`` were
+        held before it). Unlike ``gpim_tpu``'s, which compiles its fused
+        program and never runs it, this executes the training (it resets
+        the device's peak-memory statistics and this engine's
+        ``last_cg_iters`` and ``last_segments``). On the CPU there is no
+        device accounting: ``memory_analysis_error`` says so."""
+        G = math.prod(self.grid_shape)
+        p = int(self._g0.shape[0])
+        isz = self._g0.element_size()
+        out = {"G": G, "grid_shape": tuple(self.grid_shape),
+               "rank": self.precond_rank, "n_probes": p, "itemsize": isz}
+        out["analytic_bytes"] = {
+            "cg_state_4x(p+1)G": 4 * (p + 1) * G * isz,
+            "probe_block_pG": p * G * isz,
+            "grid_vectors_y_mask": 2 * G * isz,
+            "precond_factored_rr": (self.precond_rank ** 2 * isz
+                                    + sum(len(a) * min(len(a), 4096) * isz
+                                          for a in self.axes_np)),
+            "trajectory_per_iter": (int(iterations)
+                                    * (2 + len(self.axes_np)) * isz),
+        }
+        dev = torch.device(self.device)
+        if dev.type != "cuda":
+            out["memory_analysis_error"] = (
+                "no device memory accounting on %s" % dev.type)
+            return out
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out["allocated_before_bytes"] = torch.cuda.memory_allocated(dev)
+        self.train(u0, bounds, lr, jitter, iterations=int(iterations))
+        torch.cuda.synchronize(dev)
+        out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
+        return out
 
     def predict(self, u, bounds, jitter, Xtest_clean, fulldims):
         """Predictive mean and variance (tensors) at the NaN-free test points

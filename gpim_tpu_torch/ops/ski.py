@@ -57,7 +57,7 @@ form's semantics are kept) and the dense one-hot interpolation gemm of
 same root). The batch-first layout (probes as rows) stays the CG layout all
 the same: every CG vector is then a contiguous row and every mode product a
 plain or strided-batched gemm. Not ported yet: the multi-device mode
-products and the experimental warm-started CG (``warm_start``).
+products.
 """
 
 import math
@@ -404,12 +404,20 @@ def mgrid_split_root(factors, mask_flat, rank, dim_cap="auto"):
 # conjugate gradients
 # --------------------------------------------------------------------------
 
-def batched_pcg(mvm, pinv, B, iters, return_iters=False, vec_axis=0):
+def batched_pcg(mvm, pinv, B, iters, return_iters=False, vec_axis=0,
+                x0=None, tol_ref=None):
     """Preconditioned CG for A X = B, all columns at once
     (gpim_tpu/ops/ski.py:698-799): returns (X, t_diags, t_offs[, realized
     iterations]). ``vec_axis`` 0: B is (n, b), a solution per column; 1:
     B is (b, n) batch-first, a solution per row (mvm and pinv take the same
     layout).
+
+    ``x0`` (B's shape) starts the solve there: X = x0 + the CG solution of
+    A D = B - A x0, and the tridiagonals then belong to the residual's
+    Lanczos process, not B's. ``tol_ref`` (one value a solution) replaces
+    |B|^2 as the reference of the relative exit test; pass the original
+    right-hand sides' norms with ``x0``, or the test tightens with the
+    smaller initial residual and the warm start saves nothing.
 
     Converged columns freeze: their state stops and their remaining
     tridiagonal rows stay the preallocated identity block (t_diag = 1,
@@ -427,16 +435,20 @@ def batched_pcg(mvm, pinv, B, iters, return_iters=False, vec_axis=0):
     """
     if vec_axis == 0:
         out = batched_pcg(lambda v: mvm(v.mT).mT, lambda r: pinv(r.mT).mT,
-                          B.mT, iters, return_iters, 1)
+                          B.mT, iters, return_iters, 1,
+                          None if x0 is None else x0.mT, tol_ref)
         return (out[0].mT,) + tuple(out[1:])
-    X = torch.zeros_like(B)
-    R = B
+    if x0 is None:
+        X, R = torch.zeros_like(B), B
+    else:
+        X, R = x0, B - mvm(x0)
     Z = pinv(R)
     P = Z
     rz = (R * Z).sum(1)
     rs0 = (R * R).sum(1)
     eps = torch.finfo(B.dtype).eps
-    tol = rs0.clamp_min(1e-30) * (100.0 * eps) ** 2
+    tol = (rs0 if tol_ref is None else tol_ref).clamp_min(1e-30) \
+        * (100.0 * eps) ** 2
     b = B.shape[0]
     Td = B.new_ones((iters, b))
     To = B.new_zeros((iters, b))
@@ -475,10 +487,12 @@ def batched_pcg(mvm, pinv, B, iters, return_iters=False, vec_axis=0):
     return X, Td, To
 
 
-def batched_cg(mvm, B, iters, vec_axis=0, return_iters=False):
-    """Unpreconditioned :func:`batched_pcg` (same frozen-column contract)."""
+def batched_cg(mvm, B, iters, vec_axis=0, return_iters=False, x0=None,
+               tol_ref=None):
+    """Unpreconditioned :func:`batched_pcg` (same frozen-column contract,
+    the same warm start)."""
     return batched_pcg(mvm, lambda r: r, B, iters, vec_axis=vec_axis,
-                       return_iters=return_iters)
+                       return_iters=return_iters, x0=x0, tol_ref=tol_ref)
 
 
 def split_pcg(mvm, pisqrt, B, iters, return_iters=False, vec_axis=0):
@@ -499,6 +513,8 @@ def _slq_from_tridiag(t_diags, t_offs, probe_sqnorms):
     same); the result comes back on the tridiagonals' device. Pass only
     the rows that CG reached (:func:`batched_pcg`'s realized count): the
     identity tail beyond them is decoupled from e1 and adds exactly 0."""
+    if t_diags.shape[0] == 0:                 # no iteration: all identity
+        return t_diags.new_zeros(())
     d = t_diags.mT.cpu()
     o = t_offs.mT[:, :-1].cpu()
     T = torch.diag_embed(d) + torch.diag_embed(o, 1) + torch.diag_embed(o, -1)
@@ -513,16 +529,19 @@ def _slq_from_tridiag(t_diags, t_offs, probe_sqnorms):
 # --------------------------------------------------------------------------
 
 class _SKIMLL(torch.autograd.Function):
-    """0.5 yc^T A^-1 yc + 0.5 logdet A (and the realized CG iterations)
-    for A = mvm(factors, noise_pj, .); see :func:`ski_mll_from_mvm`."""
+    """0.5 yc^T A^-1 yc + 0.5 logdet A, the realized CG iterations and the
+    split-space solutions for A = mvm(factors, noise_pj, .), the solve
+    started from ``X0`` (None: zeros); see :func:`ski_mll_from_mvm`."""
 
     @staticmethod
-    def forward(ctx, mvm, cg_iters, g0, Q, lam_n, noise_pj, yc, *factors):
+    def forward(ctx, mvm, cg_iters, g0, Q, lam_n, X0, noise_pj, yc,
+                *factors):
         pisqrt, logdetP = split_apply(Q, lam_n, noise_pj, vec_axis=1)
         B = torch.cat([pisqrt(yc[None, :]), g0])
         Xt, t_diags, t_offs, k_real = batched_cg(
             lambda v: pisqrt(mvm(factors, noise_pj, pisqrt(v))), B,
-            cg_iters, vec_axis=1, return_iters=True)
+            cg_iters, vec_axis=1, return_iters=True, x0=X0,
+            tol_ref=None if X0 is None else (B * B).sum(1))
         X = pisqrt(Xt)
         alpha, solves = X[0], X[1:]                  # A^-1 yc, A^-1 z_i
         w = pisqrt(g0)                               # P^-1 z = P^-1/2 z~
@@ -533,11 +552,11 @@ class _SKIMLL(torch.autograd.Function):
         ctx.mvm = mvm
         ctx.save_for_backward(noise_pj, alpha, solves, w, *factors)
         iters = k_real.to(out.dtype)
-        ctx.mark_non_differentiable(iters)
-        return out, iters
+        ctx.mark_non_differentiable(iters, Xt)
+        return out, iters, Xt
 
     @staticmethod
-    def backward(ctx, g, _g_iters):
+    def backward(ctx, g, _g_iters, _g_x):
         noise_pj, alpha, solves, w, *factors = ctx.saved_tensors
         # d quad = -0.5 a^T (dA) a;  d logdet = tr(A^-1 dA) ~= (1/p) sum_i
         # s_i^T (dA) w_i with s_i = A^-1 z_i, w_i = P^-1 z_i: the surrogate
@@ -550,7 +569,7 @@ class _SKIMLL(torch.autograd.Function):
             surrogate = (-0.5 * torch.dot(alpha, Av[0])
                          + 0.5 * (solves * Av[1:]).sum() / solves.shape[0])
             grads = torch.autograd.grad(surrogate, [nz] + fs)
-        return (None, None, None, None, None, g * grads[0], g * alpha,
+        return (None, None, None, None, None, None, g * grads[0], g * alpha,
                 *(g * gf for gf in grads[1:]))
 
 
@@ -575,15 +594,28 @@ def ski_mll_from_mvm(mvm, cg_iters, g0, return_iters=False, warm_start=False):
     the variance through the kernel build. With ``return_iters`` the core
     returns (loss, realized CG iterations as a float tensor, which takes no
     gradient).
+
+    ``warm_start`` (experimental, as in ``gpim_tpu``, ski.py:985-1042):
+    core(factors, noise_pj, yc, Q, lam_n, X0) starts the split-space solve
+    from ``X0`` (p + 1, G), e.g. the previous Adam step's solutions within
+    a training segment (its basis is fixed there), with the exit test
+    against |B|^2 of the original right-hand sides, and returns (loss,
+    (X_new, realized CG iterations)). The gradient is the cold one (from
+    the converged solves, which do not depend on the start up to the CG
+    tolerance; X0 takes no gradient). The SLQ log-determinant comes from
+    the residual's tridiagonals, which is biased once X0 != 0, so the
+    recorded loss is approximate, in ``gpim_tpu`` as here.
     """
     if warm_start:
-        raise NotImplementedError(
-            "warm-started CG (gpim_tpu/ops/ski.py:985-1042, experimental "
-            "there) is not ported to gpim_tpu_torch yet")
+        def core_ws(factors, noise_pj, yc, Q, lam_n, X0):
+            out, iters, X = _SKIMLL.apply(mvm, cg_iters, g0, Q, lam_n, X0,
+                                          noise_pj, yc, *factors)
+            return out, (X, iters)
+        return core_ws
 
     def core(factors, noise_pj, yc, Q, lam_n):
-        out, iters = _SKIMLL.apply(mvm, cg_iters, g0, Q, lam_n, noise_pj,
-                                   yc, *factors)
+        out, iters, _ = _SKIMLL.apply(mvm, cg_iters, g0, Q, lam_n, None,
+                                      noise_pj, yc, *factors)
         return (out, iters) if return_iters else out
     return core
 

@@ -1,6 +1,10 @@
 """
-Phase timing for the reconstructors (counterpart of ``Timer`` in
-``gpim_tpu/utils/profiling.py``).
+Tracing and phase timing (counterpart of ``gpim_tpu/utils/profiling.py``).
+
+- ``trace(logdir)``: torch.profiler over the enclosed block, host and CUDA
+  activities, exported as a Chrome trace into ``logdir`` (TensorBoard's
+  profiler plugin and Perfetto read it).
+- ``Timer``: the reconstructors' phase timer.
 
 PyTorch returns before the device finishes, so a phase on a CUDA device
 synchronises before it reads the clock, at both ends. The first call of a
@@ -9,11 +13,34 @@ warm-up) and is kept apart from warm calls.
 """
 
 import contextlib
+import os
+import socket
+import tempfile
 import time
 
 import torch
 
-__all__ = ["Timer"]
+__all__ = ["trace", "Timer"]
+
+
+@contextlib.contextmanager
+def trace(logdir=None):
+    """Profile the enclosed block (CPU operators, and CUDA kernels where a
+    card is present) and write it to ``logdir`` (default:
+    ``gpim_tpu_torch_trace`` in the temporary directory) as
+    ``<host>_<pid>.<ms>.pt.trace.json``, the name TensorBoard's profiler
+    plugin looks for; yields ``logdir``."""
+    from torch.profiler import ProfilerActivity, profile
+    if logdir is None:
+        logdir = os.path.join(tempfile.gettempdir(), "gpim_tpu_torch_trace")
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield logdir
+    os.makedirs(logdir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(logdir, "%s_%d.%d.pt.trace.json" % (
+        socket.gethostname(), os.getpid(), time.time_ns() // 1_000_000)))
 
 
 class Timer:

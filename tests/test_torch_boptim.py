@@ -3,7 +3,8 @@ gpim_tpu_torch.boptimizer on the CPU, the port alone: the twin of
 tests/test_boptim.py (the three goldens, written by gpim_tpu and read
 here, batch selection, masks, custom acquisition callables, simulated
 measurements and their artefacts), plus the ranking's tie order, the
-default device and, on the card, a known float32 fault.
+default device and the surrogate's precision, and, on the card, the
+spiral BO in float64 by default and its float32 Cholesky failure.
 tests/test_torch_boptim_parity.py holds the same runs against gpim_tpu.
 
 The tests marked ``cuda`` need a CUDA device and skip without one. The file
@@ -13,19 +14,18 @@ imports no JAX, so it runs on a machine without it:
 """
 
 import os
-import sys
 
 import numpy as np
 import pytest
 import torch
 from numpy.testing import assert_allclose
 
-from gpim_tpu_torch import boptimizer, utils
+from gpim_tpu_torch import boptimizer, dtypes, utils
+from gpim_tpu_torch.examples import _data
 from gpim_tpu_torch.gpbayes import acqfunc, boptim
 from gpim_tpu_torch.native import spatial
 
 _DATA = os.path.join(os.path.dirname(__file__), "test_data")
-_EXAMPLES = os.path.join(os.path.dirname(__file__), os.pardir, "examples")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -288,30 +288,56 @@ def test_simulated_run_artifacts_roundtrip(tmp_path):
     assert len(bo.surrogate_model.X) == 5 + 6
 
 
-@pytest.mark.cuda
-def test_float32_spiral_bo_fails_its_cholesky(tmp_path):
-    """Known fault, open: at the float32 default on the card, EI seeded
-    with the 128x128 spiral scan (n = 6144 rows) drives noise + jitter
-    under the float32 factorisation's round-off, and a refit's Cholesky
-    fails. The test fails once that is repaired, or if the run breaks
-    otherwise."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    sys.path.insert(0, _EXAMPLES)
-    try:
-        import _data
-    finally:
-        sys.path.remove(_EXAMPLES)
+def _spiral_bo(tmp_path, **kw):
+    """EI on the card seeded with the 128x128 spiral scan (n = 6144 rows),
+    8 steps of simulated measurements on the field the scan masks."""
     R = _data.spiral_scan()
     field = _data._smooth_field((128, 128), sigma=(6.0, 6.0), seed=0)
-    bo = boptimizer(utils.get_sparse_grid(R), R, utils.get_full_grid(R),
-                    None, acquisition_function="ei", exploration_steps=8,
-                    gp_iterations=250, simulate_measurement=True,
-                    y_true=field, verbose=0,
-                    filename=str(tmp_path / "spiral_bo"))
+    return boptimizer(utils.get_sparse_grid(R), R, utils.get_full_grid(R),
+                      None, acquisition_function="ei", exploration_steps=8,
+                      gp_iterations=250, simulate_measurement=True,
+                      y_true=field, verbose=0,
+                      filename=str(tmp_path / "spiral_bo"), **kw)
+
+
+@pytest.mark.cuda
+def test_float32_spiral_bo_fails_its_cholesky(tmp_path):
+    """A float32 property, pinned: with precision="single" on the card, EI
+    seeded with the spiral scan drives noise + jitter under the float32
+    factorisation's round-off, and a refit's Cholesky fails. The default
+    surrogate is float64
+    (test_default_spiral_bo_runs_to_its_end_in_float64)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    bo = _spiral_bo(tmp_path, precision="single")
     assert bo.surrogate_model.dtype == torch.float32
     with pytest.raises(torch.linalg.LinAlgError, match="Cholesky"):
         bo.run()
+
+
+@pytest.mark.cuda
+def test_default_spiral_bo_runs_to_its_end_in_float64(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    bo = _spiral_bo(tmp_path)
+    assert bo.surrogate_model.dtype == torch.float64
+    assert bo.surrogate_model.device.type == "cuda"
+    bo.run()
+    assert bo.steps_done == 8 and len(bo.indices_all) == 8
+    assert np.isfinite(np.asarray(bo.vals_all, float)).all()
+
+
+def test_surrogate_precision_is_double_unless_asked_on_every_device():
+    """precision=None resolves to float64 for the surrogate on the card as
+    on the CPU; an explicit precision stays as given."""
+    for device in ("cuda", "cpu"):
+        assert dtypes.resolve_dtype(boptim._surrogate_precision(None),
+                                    device) == torch.float64
+        assert dtypes.resolve_dtype(boptim._surrogate_precision("single"),
+                                    device) == torch.float32
+    assert boptim._surrogate_precision("double") == "double"
+    # the other models keep the single default on the card
+    assert dtypes.resolve_dtype(None, "cuda") == torch.float32
 
 
 def test_checkpoint_roundtrip_resumes(tmp_path):

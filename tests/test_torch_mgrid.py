@@ -3,8 +3,10 @@ gpim_tpu_torch.gpreg.mgrid_model and skreconstructor's masked-lattice route
 against gpim_tpu on the same numpy inputs: lattice detection; the engine's
 training series (lengthscale, noise and loss at rtol 1e-6 in float64, the
 realized CG iterations exactly, so the adaptive rebuild schedule is the
-same) against JAX's host segment loop; prediction on the Cartesian grid and
-at scattered points; the posterior against a dense exact GP (the check of
+same) against JAX's host segment loop, cold and warm-started (with
+batched CG from x0 and the segment loop's carry); prediction on the
+Cartesian grid and at scattered points; the posterior against a dense
+exact GP (the check of
 tests/test_ski.py::test_masked_grid_engine_matches_dense_exact); run() in
 RBF and Matern52 (float64, rtol 1e-6) and in float32 (1e-3); max_root
 capping the preconditioner rank; update_data() between the dense,
@@ -326,3 +328,151 @@ def test_update_data_moves_between_routes_and_keeps_the_time_series():
     mean, sd = m.predict()
     assert np.isfinite(mean).all() and np.isfinite(sd).all()
     assert np.sqrt(np.mean((mean - truth) ** 2)) < 0.1
+
+
+# --------------------------------------------------------------------------
+# the warm-started CG (experimental in gpim_tpu, off the public surface)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("vec_axis", [0, 1])
+def test_batched_pcg_warm_start_matches_gpim_tpu(vec_axis):
+    """batched_cg from x0 with the original right-hand sides' tolerance
+    reference (tests/test_round4_fixes.py:148-175): started at the
+    solution it stops at once, started near it it lands on the same
+    solution in fewer iterations than cold; solutions, tridiagonals and
+    the realized count as gpim_tpu's."""
+    from gpim_tpu.ops import ski as jski
+    from gpim_tpu_torch.ops import ski
+    rng = np.random.RandomState(0)
+    n, b = 64, 4
+    M = rng.randn(n, n)
+    A = M @ M.T + n * np.eye(n)
+    B = rng.randn(n, b)
+    near = 1e-6 * rng.randn(n, b)
+    tr = (lambda a: a) if vec_axis == 0 else (lambda a: np.asarray(a).T)
+    jmvm = (lambda v: jnp.asarray(A) @ v) if vec_axis == 0 else \
+        (lambda v: v @ jnp.asarray(A))
+    tA = torch.as_tensor(A)
+    mvm = (lambda v: tA @ v) if vec_axis == 0 else (lambda v: v @ tA)
+    jB, tB = jnp.asarray(tr(B)), torch.as_tensor(tr(B))
+    ref = jnp.sum(jB * jB, axis=vec_axis)
+    jcold = jski.batched_cg(jmvm, jB, 200, vec_axis=vec_axis,
+                            return_iters=True)
+    cold = ski.batched_cg(mvm, tB, 200, vec_axis=vec_axis,
+                          return_iters=True)
+    for x0 in (None, np.array(jcold[0]), np.array(jcold[0]) + tr(near)):
+        kw = {} if x0 is None else dict(tol_ref=ref)
+        jout = jski.batched_cg(jmvm, jB, 200, vec_axis=vec_axis,
+                               return_iters=True,
+                               x0=None if x0 is None else jnp.asarray(x0),
+                               **kw)
+        out = ski.batched_cg(
+            mvm, tB, 200, vec_axis=vec_axis, return_iters=True,
+            x0=None if x0 is None else torch.as_tensor(x0),
+            tol_ref=None if x0 is None else torch.as_tensor(np.array(ref)))
+        assert int(out[3]) == int(jout[3])
+        _close(out[0].numpy(), jout[0], 1e-10)
+        live = slice(0, max(int(out[3]), 1))
+        _close(out[1][live].numpy(), np.asarray(jout[1])[live], 1e-8)
+        _close(out[2][live].numpy(), np.asarray(jout[2])[live], 1e-8)
+        assert_allclose(out[0].numpy(), cold[0].numpy(), atol=1e-7)
+        if x0 is not None:
+            assert int(out[3]) < int(cold[3])
+    assert_allclose(tr(A @ tr(cold[0].numpy())), tr(B), atol=1e-8)
+
+
+def _ws_lattice():
+    """tests/test_round4_fixes.py:177-215: a 20x20 bump with noise, 40% of
+    the pixels missing; the engine's inputs and each package's u0 and
+    bounds."""
+    from gpim_tpu.kernels import transforms as jtr
+    rng = np.random.RandomState(1)
+    axes = [np.arange(20, dtype=np.float64), np.arange(20, dtype=np.float64)]
+    xx, yy = np.meshgrid(axes[0], axes[1], indexing="ij")
+    Y = np.exp(-((xx - 10) ** 2 + (yy - 10) ** 2) / 50.0)
+    Y = Y + 0.02 * rng.randn(20, 20)
+    Y[rng.rand(20, 20) < 0.4] = np.nan
+    jb = {"ls_lo": jnp.zeros(2), "ls_hi": jnp.full(2, 10.0)}
+    ju0 = {"lengthscale": jtr.interval_inverse(jnp.full(2, 1.0),
+                                               jb["ls_lo"], jb["ls_hi"]),
+           "outputscale": jtr.positive_inverse(jnp.asarray(1.0)),
+           "noise": jtr.positive_inverse(jnp.asarray(1.0)),
+           "mean": jnp.zeros(())}
+    t = lambda a: torch.as_tensor(np.asarray(a))  # noqa: E731
+    return axes, Y, (ju0, jb), ({k: t(v) for k, v in ju0.items()},
+                                {k: t(v) for k, v in jb.items()})
+
+
+@pytest.fixture(scope="module")
+def warm():
+    """30 Adam steps, float64, cg_iters 128, rank 256, lr 0.1, jitter
+    1e-6: gpim_tpu's engine warm-started, the port's warm and cold."""
+    axes, Y, (ju0, jb), (pu0, pb) = _ws_lattice()
+    kw = dict(cg_iters=128, precond_rank=256, seed=0)
+    je = jmgrid.MaskedGridEngine("RBF", axes, ~np.isnan(Y), Y, np.float64,
+                                 **kw)
+    _, jt = je.train(ju0, jb, 0.1, 1e-6, iterations=30,
+                     record_cg_iters=True, warm_start=True)
+    out = {"jt": jt}
+    for tag in ("warm", "cold"):
+        eng = mgrid_model.MaskedGridEngine("RBF", axes, ~np.isnan(Y), Y,
+                                           torch.float64, "cpu", **kw)
+        u, traj = eng.train(pu0, pb, 0.1, 1e-6, iterations=30,
+                            record_cg_iters=True,
+                            warm_start=tag == "warm")
+        out[tag] = (eng, u, traj)
+    return out
+
+
+def test_warm_start_training_series_match_gpim_tpu(warm):
+    jt = warm["jt"]
+    eng, _, pt = warm["warm"]
+    for k in ("lengthscale", "noise", "loss"):
+        _close(pt[k].numpy(), jt[k], 1e-6, k)
+    np.testing.assert_array_equal(pt["cg_iters"].numpy(), jt["cg_iters"])
+    segs, s_next, i = [], 2, 0
+    while i < 30:
+        s = min(s_next, 30 - i)
+        i += s
+        segs.append(s)
+        last = jt["cg_iters"][i - 1]
+        s_next = (max(2, s // 2) if last >= 16 else
+                  min(10, 2 * s) if last <= 8 else s_next)
+    assert eng.last_segments == segs
+
+
+def test_warm_and_cold_reach_the_same_fit(warm):
+    """As gpim_tpu's test asserts: the gradient does not depend on the
+    start up to the CG tolerance, so both reach the same hyperparameters;
+    the warm solves need no more CG iterations a step here, fewer in all,
+    and the recorded losses part only through the biased log-determinant."""
+    _, _, tw = warm["warm"]
+    _, _, tc = warm["cold"]
+    assert_allclose(tw["lengthscale"][-1].numpy(),
+                    tc["lengthscale"][-1].numpy(), rtol=0.05)
+    assert_allclose(float(tw["noise"][-1]), float(tc["noise"][-1]),
+                    rtol=0.1)
+    it_w, it_c = tw["cg_iters"].numpy(), tc["cg_iters"].numpy()
+    assert (it_w <= it_c).all() and it_w.sum() < it_c.sum()
+    assert np.isfinite(tw["loss"].numpy()).all()
+
+
+def test_adam_segments_resets_the_carry_at_each_segment():
+    """engine.adam_segments with carry0: a step gets the previous step's
+    carry within a segment and carry0() at each segment's start."""
+    from gpim_tpu_torch.gpreg import engine
+    seen = []
+
+    def loss_iters(u, pre, carry):
+        seen.append((pre, carry))
+        return (u["x"] ** 2).sum(), torch.tensor(12.0), carry + 1
+    builds = []
+
+    def build(u):
+        builds.append(len(seen))
+        return len(builds)
+    engine.adam_segments({"x": torch.ones(2, dtype=torch.float64)}, 0.1, 7,
+                         build, loss_iters, carry0=lambda: 0)
+    # 12 CG iterations hold every segment at 2 steps
+    assert builds == [0, 2, 4, 6]
+    assert seen == [(1, 0), (1, 1), (2, 0), (2, 1), (3, 0), (3, 1), (4, 0)]

@@ -257,6 +257,12 @@ def test_slq_from_tridiag_matches_gpim_tpu():
     ref = jski._slq_from_tridiag(jnp.asarray(td), jnp.asarray(to),
                                  jnp.asarray(sq))
     _close(ski._slq_from_tridiag(_t(td), _t(to), _t(sq)), ref, 1e-12)
+    # no row reached (a warm start at the solution): JAX's all-identity
+    # tridiagonals give 0, as the port's empty ones do
+    ident = jski._slq_from_tridiag(jnp.ones((m, p)), jnp.zeros((m, p)),
+                                   jnp.asarray(sq))
+    assert float(ident) == 0.0
+    assert float(ski._slq_from_tridiag(_t(td[:0]), _t(to[:0]), _t(sq))) == 0
 
 
 @pytest.mark.parametrize("precision", ["double", "single"])
@@ -298,11 +304,6 @@ def test_ski_mll_value_and_gradients_match_jax_vjp(precision):
     _close(tp["variance"].grad, jg[0]["variance"], rtol)
     _close(tn.grad, jg[1], rtol)
     _close(ty.grad, jg[2], rtol)
-
-
-def test_warm_start_is_not_ported():
-    with pytest.raises(NotImplementedError, match="warm-started CG"):
-        ski.ski_mll_from_mvm(None, 10, None, warm_start=True)
 
 
 def test_grid_predictor_and_exact_variance_probe_match_gpim_tpu():
