@@ -21,16 +21,20 @@ its final line):
              64 x 64, 5 x 5 and a predict chunk's cross rows 4096 x 10,
              4096 x 64, 4096 x 5), the four of the masked-lattice rows
              (d = 1: the factors 128 x 128, 64 x 64, 32 x 32 and
-             256 x 256) and the two of the off-lattice rows (d = 1: the
-             inducing-grid factors 36 x 36 and 70 x 70), with the
-             tolerances below;
+             256 x 256), the two of the off-lattice rows (d = 1: the
+             inducing-grid factors 36 x 36 and 70 x 70) and the three that
+             only the two-rank world of phase parallel gives it (a VFE
+             rank's Kmn 1027 x 15424 and predict tile 2048 x 1027, d = 3;
+             a masked-lattice rank's factor block 32 x 64, d = 1), with
+             the tolerances below;
              float32 device time per call of each kernel, its plain version
              and (K1) torch.cdist, beside the kernel's bound: K2 and K3 from
              a warm loop of launches (_time_ms), K1 from a CUDA graph of
              calls (_time_graph_ms);
              the batched kernels at the multi-output eels64 shapes (T = 64
              tasks, n = 2048: K2, K3, and K1 on one 64 x 2048 x 2048
-             predict chunk) against their plain versions in float32 and
+             predict chunk), and at one task-sharded rank's share of them
+             (T = 32), against their plain versions in float32 and
              float64, each timed (a warm loop of launches) beside its
              bound, its plain version and (K1) batched torch.cdist.
 4. flagship - reconstructor(X, R, X_full, kernel="RBF", iterations=250,
@@ -136,7 +140,32 @@ its final line):
              coordinates (9216 rows) card against CPU in float64, on both
              variance paths (Nystrom; Lanczos at precond_rank=0) and with
              max_root.
-12. profile - torch.profiler over PROFILE_STEPS warm float32 training steps
+12. parallel - the parallel layer (gpim_tpu_torch.parallel, mesh=): (a) a
+             one-rank NCCL world (parallel.distributed.initialize), in which
+             every public name runs with mesh=True on rows the script
+             already runs - the flagship, the BEPFM VFE, eels6 correlated,
+             ckpfm4d, ski_masked64x64x32, ski_offlattice64x64x32 and bo25
+             EI - against its unsharded twin in the same process: results
+             equal to float32 rtol 1e-6 (series included; the off-lattice
+             row within PARALLEL_SPREAD times its own run-to-run spread),
+             the same K1/K2/K3 launches, NCCL collectives issued; (b) two
+             ranks sharing the card over gloo (python -m
+             gpim_tpu_torch.parallel.mp_worker spec), at full width, each
+             row cold then warm: eels64 task-sharded (T = 64, 32 channels
+             a rank, n = 2048, 100 iterations, f32) with its rmse gate,
+             the BEPFM VFE row-sharded (n = 30848, 15424 rows a rank, m =
+             1027, Matern52, 400 steps) with rmse_vs_truth < 0.1, and
+             ski_masked64x64x32 in blocks of its first grid axis (32 x 64 x
+             32 cells a rank, all-to-alls in every mode product) with
+             rmse_vs_truth < 0.75 data sd; against one-rank runs of the
+             same rows: the gaps of mean, sd, lengthscale and noise
+             (MULTI_CROSS_TOL, VFE_CROSS_TOL, MGRID_CROSS_TOL), of the
+             step-0 loss (PARALLEL_LOSS0_RTOL) and which of eels64's
+             channels are bit-equal (EELS64_BIT_EQUAL must all be),
+             each rank's K1/K2/K3 launches and call shapes (its share
+             only), collective calls and bytes (staged through the host or
+             not), walls.
+13. profile - torch.profiler over PROFILE_STEPS warm float32 training steps
              of the flagship, of the VFE run, of ckpfm4d and of the
              spectral row, MULTI_PROFILE_STEPS of eels6, eels64 and eels6
              correlated, MGRID_PROFILE_STEPS of mgrid_masked128x128x64 and
@@ -147,7 +176,7 @@ its final line):
              (ckpfm4d) the host time of eigh (printed; a profiler that
              records no device time prints "not measured" and fails
              nothing).
-13. examples - each runner of gpim_tpu_torch/examples (the six
+14. examples - each runner of gpim_tpu_torch/examples (the six
              examples/*.py workflows) once, warm, at its script's full
              budget on the card, its data made beforehand:
              sparse_image_2d (the spiral, RBF, 250 iterations; rmse_obs <
@@ -163,7 +192,7 @@ its final line):
              script's quality number, launches against the counts each
              run implies; eels and the BO, which gate on nothing, must give
              finite output of the expected shape.
-14. trace   - utils.profiling.trace around a warm flagship run of
+15. trace   - utils.profiling.trace around a warm flagship run of
              PROFILE_STEPS training steps and its predict, and the same run
              untraced: the exported Chrome trace must hold K1, K2 and K3 as
              CUDA kernel events as often as the run launched them.
@@ -609,6 +638,39 @@ def _vfe_k1_inputs(vfe, dtype):
             ("Ks", Xt, Xu, (j, j))]
 
 
+def _parallel_k1_inputs(vfe, dtype):
+    """K1's operand pairs that only the two-rank world gives it (phase
+    parallel (b)): the row-sharded VFE rank's Kmn (Xu against its 15424 of
+    the 30848 padded rows; rank 1's, the padding included) and its
+    2048-row predict tile against Xu, and the masked-lattice rank's block
+    of the first grid axis (32 of 64) against the whole axis, with their
+    coincident pairs."""
+    import torch
+    from gpim_tpu_torch import utils
+    from gpim_tpu_torch.gpreg import engine
+    R, X, X_full, _ = vfe
+    X_np, _ = utils.prepare_training_data(X, R)
+    stride = len(X_np) // VFE["indpoints"]
+    Xp, _ = engine.pad_rows(X_np, 128)
+    half = len(Xp) // 2
+    ls = np.array([4.0, 4.0, 9.0])
+    t = lambda a: torch.as_tensor(a / ls, dtype=dtype,  # noqa: E731
+                                  device="cuda").contiguous()
+    Xu, Xs = t(X_np[::stride]), t(Xp[half:])
+    Xt = t(utils.prepare_test_data(X_full)[MULTI_CHUNK:2 * MULTI_CHUNK])
+    Xt[:512] = Xu[:512]
+    i = torch.arange(len(Xu), device="cuda")
+    i = i[(i * stride >= half) & (i * stride < len(X_np))]
+    j = torch.arange(512, device="cuda")
+    axis = torch.as_tensor(np.arange(64, dtype=np.float64)[:, None]
+                           / MGRID_LS, dtype=dtype, device="cuda")
+    k = torch.arange(32, device="cuda")
+    return [("Kmn rank share", Xu, Xs, (i, i * stride - half)),
+            ("Ks rank tile", Xt, Xu, (j, j)),
+            ("factor block 32x64", axis[32:].contiguous(), axis,
+             (k, k + 32))]
+
+
 def _kron_k1_inputs(ckpfm, dtype):
     """K1's operand pairs on the ckpfm4d Kronecker path at a trained
     lengthscale, one feature each: every grid axis against itself (the
@@ -903,8 +965,9 @@ def _batched_cases(eels64, dname, timed):
 
 def phase_kernels(R, X, X_full, vfe, eels64, ckpfm):
     """Each kernel against its plain version at the flagship's shapes and
-    at the BO paths', and K1 also at the VFE path's and at the ckpfm4d
-    Kronecker path's."""
+    at the BO paths', batched at eels64's and at one task-sharded rank's
+    share of it, and K1 also at the VFE path's, the ckpfm4d Kronecker
+    path's, the SKI rows' and the two-rank world's shapes."""
     import torch
     from gpim_tpu_torch import utils
     from gpim_tpu_torch.gpreg import engine
@@ -961,6 +1024,13 @@ def phase_kernels(R, X, X_full, vfe, eels64, ckpfm):
             log("[kernels]   sqdist off-lattice %s, d = 1" % label)
             rec["sqdist"]["ski_shapes"][label] = _sqdist_case(
                 A, B, zeros, dname, timed)
+        # K1 at the shapes only the two-rank world gives it
+        rec["sqdist"]["parallel_shapes"] = {}
+        for label, A, B, zeros in _parallel_k1_inputs(vfe, dtype):
+            log("[kernels]   sqdist two-rank %s %d x %d, d = %d"
+                % (label, len(A), len(B), A.shape[1]))
+            rec["sqdist"]["parallel_shapes"][label] = _sqdist_case(
+                A, B, zeros, dname, timed)
         del A1, A, B
 
         # K2 at the training system shape, all three kernel families
@@ -1014,6 +1084,12 @@ def phase_kernels(R, X, X_full, vfe, eels64, ckpfm):
         # every kernel with its task axis at the multi-output eels64 shapes
         for name, r in _batched_cases(eels64, dname, timed).items():
             rec[name]["batched_shapes"] = {"eels64": r}
+        # and at one task-sharded rank's share of them (32 of the 64)
+        X, Y, Xf, fields = eels64
+        share = (X, Y[..., Y.shape[-1] // 2:], Xf,
+                 fields[..., fields.shape[-1] // 2:])
+        for name, r in _batched_cases(share, dname, timed).items():
+            rec[name]["batched_shapes"]["eels64 rank share"] = r
         report[dname] = rec
     def show(name, r, reps=TIMING_REPS):
         log("[kernels] %-19s float32 kernel %.4f ms%s, plain %.4f ms, "
@@ -1034,9 +1110,11 @@ def phase_kernels(R, X, X_full, vfe, eels64, ckpfm):
         show("sqdist mgrid " + label, r)
     for label, r in report["float32"]["sqdist"]["ski_shapes"].items():
         show("sqdist off-lattice " + label, r)
+    for label, r in report["float32"]["sqdist"]["parallel_shapes"].items():
+        show("sqdist two-rank " + label, r)
     for name, r in report["float32"].items():
-        show(name + " eels64", r["batched_shapes"]["eels64"],
-             MULTI_TIMING_REPS)
+        for label, b in r["batched_shapes"].items():
+            show(name + " " + label, b, MULTI_TIMING_REPS)
     return report["float32"]
 
 
@@ -2939,6 +3017,398 @@ def phase_trace(R, X, X_full):
     return walls
 
 
+# ---------------------------------------------------------------------------
+# phase parallel: mesh= on a one-rank NCCL world, and two ranks on the card
+# ---------------------------------------------------------------------------
+
+# A sharded run on a one-rank world runs the same operations as its
+# unsharded twin (every collective over one rank is a copy), so float32
+# results are held to 1e-6; the off-lattice route's index_add_ sums in no
+# fixed order, so it is held to PARALLEL_SPREAD times the largest
+# difference between two of its unsharded runs instead.
+PARALLEL_RTOL = 1e-6
+PARALLEL_SPREAD = 4.0
+# Two ranks on one card: eels64's channels split 32 + 32 over 'task' (each
+# channel's arithmetic is the same launch shape per task, so its results
+# are expected bit for bit; the loss is a sum in another order), held to
+# MULTI_CROSS_TOL and EELS64_BIT_EQUAL; the VFE's rows split 15424 + 15424 over 'grid' (B's row
+# sums in another order, amplified by 400 float32 Adam steps, as between
+# float32 and float64), held to VFE_CROSS_TOL and its rmse gate; the
+# masked-lattice ski_masked64x64x32 in blocks of its first grid axis (32 +
+# 32 of 64: the CG state, two all-to-alls in every mode product,
+# all-reduced inner products), held to MGRID_CROSS_TOL and its rmse gate;
+# both of these also to PARALLEL_LOSS0_RTOL.
+# The step-0 loss of the VFE and masked rows on two ranks: the same
+# parameters, only the order of the sums differs, so it is held to
+# VFE_CROSS_TOL's step-0 limit (measured on an H100: 2.09e-7 and 0).
+PARALLEL_LOSS0_RTOL = 1e-6
+# eels64's channels on two ranks whose one-rank values they must equal bit
+# for bit (all 64 did on an H100); its predictive sd is not among them (the
+# variance's batched solves run 32 channels a call, and 0 of 64 channels
+# were bit-equal, 2.5e-7 apart), so sd is held to MULTI_CROSS_TOL.
+EELS64_BIT_EQUAL = ("mean", "hp_lengthscale", "hp_noise", "hp_outputscale")
+PARALLEL_DIR = os.path.join(_HERE, "build", "chip_smoke", "parallel")
+PARALLEL_ROWS = ("flagship", "bepfm3d_vfe", "eels6_correlated", "ckpfm4d",
+                 "ski_masked64x64x32", "ski_offlattice64x64x32",
+                 "bo25_ei_explore")
+
+
+def _max_gaps(a, b):
+    """Largest absolute and relative gap over every array of two result
+    dicts (NaN in both places counts as equal)."""
+    out = {}
+    for k in a:
+        x, y = np.asarray(a[k], float), np.asarray(b[k], float)
+        same = np.isnan(x) & np.isnan(y)
+        d = np.where(same, 0.0, np.abs(x - y))
+        rel = d / np.maximum(np.abs(y), 1e-30)
+        out[k] = (float(np.nanmax(d)) if d.size else 0.0,
+                  float(np.nanmax(rel)) if d.size else 0.0)
+    return out
+
+
+def _parallel_twin(label, run, spread=False):
+    """Run ``run(mesh) -> result dict`` unsharded and with mesh=True on the
+    one-rank world; the results must agree (PARALLEL_RTOL, or within the
+    unsharded run-to-run spread), the launches must be equal and the
+    sharded run must have issued NCCL collectives. Returns the sharded
+    run's launches and record."""
+    from gpim_tpu_torch.parallel import distributed
+    _reset_launches()
+    t0 = time.perf_counter()
+    twin = run(None)
+    twin_s = time.perf_counter() - t0
+    l_twin = _read_launches()
+    limit = None
+    if spread:
+        again = run(None)
+        limit = {k: PARALLEL_SPREAD * g[0]
+                 for k, g in _max_gaps(again, twin).items()}
+    distributed.reset_collective_counts()
+    _reset_launches()
+    t0 = time.perf_counter()
+    got = run(True)
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    coll = distributed.collective_counts()
+    gaps = _max_gaps(got, twin)
+    bit_equal = all(g[0] == 0.0 for g in gaps.values())
+    log("[parallel] %-22s one-rank NCCL mesh vs unsharded: walls %.3f s vs "
+        "%.3f s, launches %s vs %s, %s, collectives %s" % (
+            label, wall, twin_s, launches, l_twin,
+            "bit-equal" if bit_equal else "largest gaps (abs, rel) %s" % {
+                k: "%.2e, %.2e" % g for k, g in gaps.items()},
+            json.dumps(coll)))
+    for k, (d, rel) in gaps.items():
+        ok = (d <= limit[k] or rel <= PARALLEL_RTOL) if limit \
+            else rel <= PARALLEL_RTOL or d == 0.0
+        if not ok:
+            raise AssertionError("%s: mesh=True %s is %.3e (rel %.3e) from "
+                                 "its unsharded twin" % (label, k, d, rel))
+    if launches != l_twin:
+        raise AssertionError("%s: sharded launches %s, unsharded %s"
+                             % (label, launches, l_twin))
+    if not any(k.endswith("@nccl") and v["calls"] > 0
+               for k, v in coll.items()):
+        raise AssertionError("%s: the one-rank mesh issued no NCCL "
+                             "collective" % label)
+    return launches, {"wall_s": wall, "twin_wall_s": twin_s,
+                      "bit_equal": bit_equal, "collectives": coll,
+                      "gaps": gaps}
+
+
+def _result(mean, sd, hp, losses):
+    out = {"mean": mean, "sd": sd, "losses": losses}
+    out.update({"hp_" + k: np.asarray(v) for k, v in hp.items()
+                if np.size(v)})
+    return out
+
+
+def _parallel_one_rank(R, X, X_full, vfe, eels6, ckpfm):
+    """Phase (a): every public name with mesh=True on a one-rank NCCL
+    world against its unsharded twin."""
+    from gpim_tpu_torch import (boptimizer, reconstructor, skreconstructor,
+                                utils, vreconstructor)
+    paths, recs = {}, {}
+
+    def flagship(mesh):
+        m = reconstructor(X, R, X_full, kernel="RBF", iterations=ITERATIONS,
+                          precision="single", verbose=0, mesh=mesh)
+        return _result(*m.run(), m.losses)
+
+    def bepfm(mesh):
+        m = reconstructor(*vfe[1::-1], vfe[2], precision="single", verbose=0,
+                          mesh=mesh, **VFE)
+        return _result(*m.run(), m.losses)
+
+    def eels6_corr(mesh):
+        m = vreconstructor(*eels6[:3], verbose=0, mesh=mesh,
+                           **dict(MULTI, independent=False))
+        return _result(*m.run(), m.losses)
+
+    def ckpfm4d(mesh):
+        m = skreconstructor(ckpfm[1], ckpfm[0], ckpfm[1], verbose=0,
+                            mesh=mesh, **CKPFM)
+        return _result(*m.run(), m.losses)
+
+    Rs, truth = ski_masked_data()
+    Xs, Xsf = utils.get_sparse_grid(Rs), utils.get_full_grid(Rs)
+
+    def masked64(mesh):
+        m = skreconstructor(Xs, Rs, Xsf, verbose=0, mesh=mesh,
+                            iterations=MGRID_ROWS["ski_masked64x64x32"][1],
+                            **MGRID)
+        return _result(*m.run(), m.losses)
+
+    def offlattice64(mesh):
+        m = skreconstructor(Xs, Rs, Xsf, verbose=0, mesh=mesh,
+                            iterations=OFFLATTICE_ROWS[
+                                "ski_offlattice64x64x32"][1], **OFFLATTICE)
+        return _result(*m.run(), m.losses)
+
+    grid, Xb, Xbf, _ = bo25_data()
+
+    def bo25(mesh):
+        os.makedirs(BO_DIR, exist_ok=True)
+        bo = boptimizer(Xb, grid, Xbf, bo25_target, verbose=0, mesh=mesh,
+                        filename=os.path.join(BO_DIR, "parallel_bo25"),
+                        gp_iterations=BO25_ITERATIONS,
+                        **BO25_ROWS["bo25_ei_explore"])
+        bo.run()
+        m = bo.surrogate_model
+        out = _result(*bo.gp_predictions[-1], m.hyperparams, m.losses)
+        out["vals_all"] = np.asarray(bo.vals_all, float)
+        out["indices_all"] = np.asarray(bo.indices_all, float)
+        return out
+
+    runs = {"flagship": flagship, "bepfm3d_vfe": bepfm,
+            "eels6_correlated": eels6_corr, "ckpfm4d": ckpfm4d,
+            "ski_masked64x64x32": masked64,
+            "ski_offlattice64x64x32": offlattice64, "bo25_ei_explore": bo25}
+    for label in PARALLEL_ROWS:
+        paths["parallel_" + label], recs[label] = _parallel_twin(
+            label, runs[label], label == "ski_offlattice64x64x32")
+    return paths, recs
+
+
+def _channels_equal(a, b, axis):
+    """How many channels (indices along ``axis``) of two arrays are equal
+    bit for bit."""
+    return int(sum(np.array_equal(np.take(a, t, axis), np.take(b, t, axis))
+                   for t in range(a.shape[axis])))
+
+
+def _card2_spec(vfe, eels64, masked):
+    """The inputs and spec of the two-rank world: eels64 task-sharded over
+    a (2, 1) mesh, the BEPFM VFE row-sharded and ski_masked64x64x32
+    block-sharded over a (2,) mesh, each run twice (cold, warm) in
+    float32."""
+    from gpim_tpu_torch import utils
+    os.makedirs(PARALLEL_DIR, exist_ok=True)
+    R, X, X_full, _ = vfe
+    Xe, Ye, Xef, _ = eels64
+    Rs = masked[0]
+    np.savez(os.path.join(PARALLEL_DIR, "inputs.npz"), R=R, X=X,
+             X_full=X_full, Xe=Xe, Ye=Ye, Xef=Xef, Rs=Rs,
+             Xs=utils.get_sparse_grid(Rs), Xsf=utils.get_full_grid(Rs))
+    runs = [{"name": "eels64", "model": "vreconstructor",
+             "args": ["Xe", "Ye", "Xef"], "mesh": [2, 1], "repeat": 2,
+             "kwargs": dict(MULTI, precision="single")},
+            {"name": "bepfm3d_vfe", "model": "reconstructor",
+             "args": ["X", "R", "X_full"], "mesh": True, "repeat": 2,
+             "kwargs": dict(VFE, precision="single")},
+            {"name": "ski_masked64x64x32", "model": "skreconstructor",
+             "args": ["Xs", "Rs", "Xsf"], "mesh": True, "repeat": 2,
+             "kwargs": dict(MGRID, precision="single", iterations=MGRID_ROWS[
+                 "ski_masked64x64x32"][1])}]
+    path = os.path.join(PARALLEL_DIR, "spec.json")
+    with open(path, "w") as f:
+        json.dump({"arrays": "inputs.npz", "runs": runs}, f)
+    return path
+
+
+def _parallel_two_ranks(vfe, eels64):
+    """Phase (b): two ranks sharing the card over gloo, through
+    ``python -m gpim_tpu_torch.parallel.mp_worker``, against one-rank
+    (unsharded) runs of the same rows in this process."""
+    from gpim_tpu_torch import (reconstructor, skreconstructor, utils,
+                                vreconstructor)
+    from gpim_tpu_torch.parallel import distributed
+    masked = ski_masked_data()
+    spec = _card2_spec(vfe, eels64, masked)
+    t0 = time.perf_counter()
+    distributed.launch_workers(
+        [(["spec", "--spec", spec, "--device", "cuda", "--backend", "gloo"],
+          2, PARALLEL_DIR, "card2")], timeout=600)
+    world_s = time.perf_counter() - t0
+    log("[parallel] two-rank world (gloo, one card): %.1f s from spawn to "
+        "exit" % world_s)
+    paths, recs = {}, {}
+    one = {}
+    m = vreconstructor(*eels64[:3], verbose=0, **MULTI)
+    _reset_launches()
+    one["eels64"] = _result(*m.run(), m.losses)
+    one_l = {"eels64": _read_launches()}
+    m = reconstructor(*vfe[1::-1], vfe[2], precision="single", verbose=0,
+                      **VFE)
+    _reset_launches()
+    one["bepfm3d_vfe"] = _result(*m.run(), m.losses)
+    one_l["bepfm3d_vfe"] = _read_launches()
+    Rs, truth_s = masked
+    m = skreconstructor(utils.get_sparse_grid(Rs), Rs,
+                        utils.get_full_grid(Rs), verbose=0,
+                        iterations=MGRID_ROWS["ski_masked64x64x32"][1],
+                        **MGRID)
+    _reset_launches()
+    one["ski_masked64x64x32"] = _result(*m.run(), m.losses)
+    one_l["ski_masked64x64x32"] = _read_launches()
+    for name, tol in (("eels64", MULTI_CROSS_TOL),
+                      ("bepfm3d_vfe", VFE_CROSS_TOL),
+                      ("ski_masked64x64x32", MGRID_CROSS_TOL)):
+        res, cnt = [], []
+        for r in range(2):
+            res.append(dict(np.load(os.path.join(
+                PARALLEL_DIR, "%s_r%d.npz" % (name, r)))))
+            with open(os.path.join(PARALLEL_DIR,
+                                   "%s_r%d.json" % (name, r))) as f:
+                cnt.append(json.load(f))
+        for k in res[0]:
+            if not np.array_equal(res[0][k], res[1][k], equal_nan=True):
+                raise AssertionError("%s: ranks differ in %s" % (name, k))
+        ref = one[name]
+        gaps = _max_gaps(res[0], ref)
+        mean, sd = res[0]["mean"], res[0]["sd"]
+        ls, ls1 = res[0]["hp_lengthscale"][-1], ref["hp_lengthscale"][-1]
+        n2, n1 = res[0]["hp_noise"][-1], ref["hp_noise"][-1]
+        diffs = {"mean_atol": gaps["mean"][0], "sd_atol": gaps["sd"][0],
+                 "ls_rtol": float(np.max(np.abs(ls - ls1) / np.abs(ls1))),
+                 "noise_rtol": float(np.max(np.abs(n2 - n1)
+                                            / np.abs(n1)))}
+        limits = dict(tol)
+        if name != "eels64":
+            diffs["loss0_rtol"] = float(
+                abs(res[0]["losses"][0] - ref["losses"][0])
+                / abs(ref["losses"][0]))
+            limits["loss0_rtol"] = PARALLEL_LOSS0_RTOL
+        if name == "eels64":
+            Y, fields = eels64[1], eels64[3]
+            obs = ~np.isnan(Y)
+            rmse = float(np.sqrt(np.mean((mean[obs] - fields[obs]) ** 2)))
+            gate = 0.5 * float(np.nanstd(Y))
+            per_task = {k: _channels_equal(res[0][k], ref[k],
+                                           -1 if k in ("mean", "sd") else 1)
+                        for k in ("mean", "sd", "hp_lengthscale",
+                                  "hp_noise", "hp_outputscale")}
+            extra = ("channels bit-equal to one rank's, of %d: %s; loss "
+                     "series rel gap %.2e" % (
+                         mean.shape[-1], json.dumps(per_task),
+                         gaps["losses"][1]))
+        elif name == "bepfm3d_vfe":
+            truth = vfe[3]
+            tnorm = (truth - truth.min()) / np.ptp(truth)
+            rmse = float(np.sqrt(np.mean(
+                ((mean - truth.min()) / np.ptp(truth) - tnorm) ** 2)))
+            gate = 0.1
+            per_task = None
+            extra = "the step-0 loss in the gaps"
+        else:
+            # the suite's sanity gate of the masked row (phase mgrid)
+            rmse = float(np.sqrt(np.mean((mean - truth_s) ** 2)))
+            gate = 0.75 * float(np.nanstd(Rs))
+            per_task = None
+            extra = "the step-0 loss in the gaps"
+        rec = {"wall_s": [c["wall_s"] for c in cnt],
+               "one_rank_launches": one_l[name],
+               "launches": [c["launches"] for c in cnt],
+               "calls": [c["calls"] for c in cnt],
+               "collectives": [c["collectives"] for c in cnt],
+               "gaps": diffs, "rmse": rmse, "gate": gate,
+               "bit_equal_tasks": per_task}
+        recs[name] = rec
+        for r in range(2):
+            paths["parallel2_%s_r%d" % (name, r)] = cnt[r]["launches"]
+            log("[parallel] %-12s rank %d: walls %s s (cold, warm), "
+                "launches %s, kernel calls %s, collectives %s" % (
+                    name, r, ["%.3f" % w for w in cnt[r]["wall_s"]],
+                    cnt[r]["launches"], json.dumps(cnt[r]["calls"]),
+                    json.dumps(cnt[r]["collectives"])))
+        log("[parallel] %-12s 2 ranks vs one rank: %s (limits %s); %s; "
+            "rmse %.5f (gate < %.5f); one-rank launches %s" % (
+                name, json.dumps(diffs), json.dumps(
+                    {k: limits[k] for k in diffs}), extra, rmse, gate,
+                one_l[name]))
+        if not rmse < gate:
+            raise AssertionError("%s on two ranks: rmse %.4f >= %.4f"
+                                 % (name, rmse, gate))
+        for k, d in diffs.items():
+            if not d <= limits[k]:
+                raise AssertionError("%s: 2 ranks vs one rank %s %.3e > "
+                                     "%.0e" % (name, k, d, limits[k]))
+        if per_task is not None:
+            T = mean.shape[-1]
+            short = {k: per_task[k] for k in EELS64_BIT_EQUAL
+                     if per_task[k] != T}
+            if short:
+                raise AssertionError(
+                    "eels64 on two ranks: channels bit-equal to one rank's "
+                    "only %s of %d" % (short, T))
+        if not all(k.endswith("@gloo") for c in cnt
+                   for k in c["collectives"]):
+            raise AssertionError("%s: a collective left gloo" % name)
+    _check_card2_shares(recs, vfe, eels64)
+    for r, c in enumerate(recs["ski_masked64x64x32"]["collectives"]):
+        if not c.get("all_to_all@gloo", {}).get("calls"):
+            raise AssertionError("the masked row's rank %d issued no "
+                                 "all-to-all: its mode products were not "
+                                 "sharded" % r)
+    return paths, recs
+
+
+def _check_card2_shares(recs, vfe, eels64):
+    """Each rank launched its kernels on its share only: eels64's K2/K3 on
+    32 of the 64 channels, the VFE's Kmn on half of the padded rows."""
+    T = eels64[1].shape[-1]
+    for r, calls in enumerate(recs["eels64"]["calls"]):
+        lead = {k.split()[1].split("x")[0] for k in calls}
+        if lead != {str(T // 2)}:
+            raise AssertionError("eels64 rank %d called kernels at %s, not "
+                                 "on %d channels" % (r, calls, T // 2))
+    n_pad = -(-int((~np.isnan(vfe[0])).sum()) // 128) * 128
+    for r, calls in enumerate(recs["bepfm3d_vfe"]["calls"]):
+        rows = [k for k in calls if k.startswith("sqdist")
+                and "x%dx" % n_pad in k]
+        half = [k for k in calls if k.startswith("sqdist")
+                and "x%dx" % (n_pad // 2) in k]
+        if rows or not half:
+            raise AssertionError("VFE rank %d called K1 at %s, expected its "
+                                 "%d of %d rows" % (r, calls, n_pad // 2,
+                                                    n_pad))
+
+
+def phase_parallel(R, X, X_full, vfe, eels6, eels64, ckpfm):
+    """mesh= on every public name in a one-rank NCCL world against the
+    unsharded twins, then two ranks sharing the card over gloo at full
+    width. Returns (launches by path, records)."""
+    import socket
+    import torch.distributed as dist
+    from gpim_tpu_torch.parallel import distributed
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    distributed.initialize("tcp://127.0.0.1:%d" % port, 1, 0,
+                           backend="nccl")
+    try:
+        paths, recs = _parallel_one_rank(R, X, X_full, vfe, eels6, ckpfm)
+    finally:
+        dist.destroy_process_group()
+    p2, r2 = _parallel_two_ranks(vfe, eels64)
+    paths.update(p2)
+    recs.update(r2)
+    with open(os.path.join(PARALLEL_DIR, "records.json"), "w") as f:
+        json.dump(recs, f, indent=1, default=str)
+    return paths, recs
+
+
 def kernel_records(kreport, paths):
     """The kernels line; ``paths`` maps each main path to its warm run's
     launch counts, and ``launches`` is their sum."""
@@ -2974,7 +3444,7 @@ def kernel_records(kreport, paths):
             for label, v in r["bo_shapes"].items()}
         if name == "sqdist":
             for key in ("vfe_shapes", "kron_shapes", "mgrid_shapes",
-                        "ski_shapes"):
+                        "ski_shapes", "parallel_shapes"):
                 out[-1][key] = {
                     label: {"shape": v["shape"], "max_abs_err": v["err"],
                             "ms": v["ms"], "plain_ms": v["plain_ms"],
@@ -3003,6 +3473,7 @@ def main():
     sk_paths = phase_sk(R, X, X_full, ckpfm)
     mgrid_paths, model_1m, mgrid64_rmse = phase_mgrid()
     ski_paths, model_ski = phase_ski(mgrid64_rmse)
+    par_paths, _ = phase_parallel(R, X, X_full, vfe, eels6, eels64, ckpfm)
     phase_profile("flagship", R, X, X_full, kernel="RBF")
     phase_profile("vfe", *vfe[:3], **VFE)
     phase_multi_profile(eels6, eels64)
@@ -3018,7 +3489,7 @@ def main():
     print(json.dumps({"kernels": kernel_records(
         kreport, {"flagship": launches, "vfe": vfe_launches, **bo_paths,
                   **multi_paths, **sk_paths, **mgrid_paths,
-                  **ski_paths, **ex_paths})}),
+                  **ski_paths, **ex_paths, **par_paths})}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,10 @@ package is the reference; this package carries its five public names:
 - ``boptimizer``     : GP-based Bayesian optimisation of the next
                        measurement point(s) on a grid
 
+``gpim_tpu_torch.parallel`` is the parallel layer: ``mesh=`` on every
+model shards its work over the ranks of a ``torch.distributed`` world, one
+process a card (``torchrun --nproc-per-node=N``).
+
 ``gpim_tpu_torch.examples`` holds the six example workflows as runners
 (``python -m gpim_tpu_torch.examples.sparse_image_2d``; ``--cpu`` for the
 CPU). Plotting (``utils.plot_*``) needs matplotlib, which is imported on
@@ -38,7 +42,7 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
-from gpim_tpu_torch import utils  # noqa: E402
+from gpim_tpu_torch import parallel, utils  # noqa: E402,F401
 from gpim_tpu_torch.gpreg.gpr import reconstructor  # noqa: E402
 from gpim_tpu_torch.gpreg.skgpr import skreconstructor  # noqa: E402
 from gpim_tpu_torch.gpreg.vgpr import vreconstructor  # noqa: E402

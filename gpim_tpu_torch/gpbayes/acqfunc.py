@@ -15,7 +15,6 @@ tensors instead (``boptim._acquisition``).
 """
 
 import numpy as np
-from scipy.stats import norm
 
 from gpim_tpu_torch.native.spatial import spaced_batch
 
@@ -65,6 +64,7 @@ def expected_improvement(gpmodel, X_full, X_sparse, **kwargs):
     imp = mean - mean_sample_opt - xi
     with np.errstate(divide="ignore", invalid="ignore"):
         z = imp / sd
+        from scipy.stats import norm   # on first use: a slow import
         acq = imp * norm.cdf(z) + sd * norm.pdf(z)
     return acq, (mean, sd)
 
@@ -77,6 +77,7 @@ def probability_of_improvement(gpmodel, X_full, X_sparse, **kwargs):
     mean_sample_opt = _best_observed_mean(mean, X_sparse, gpmodel)
     with np.errstate(divide="ignore", invalid="ignore"):
         z = (mean - mean_sample_opt - xi) / sd
+        from scipy.stats import norm
         acq = norm.cdf(z)
     return acq, (mean, sd)
 

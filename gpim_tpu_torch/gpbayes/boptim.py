@@ -76,22 +76,18 @@ def _top_k(macq, k):
     return -neg[:k], order[:k]
 
 
-def _device_bo_step(u0, Xd, yd, maskd, bounds, lr, jitter, chunks,
-                    obs_mask, sel_mask, alpha, beta, xi, *,
-                    kernel, iterations, sparse, acq_kind):
-    """One retrain -> predict -> acquisition step on tensors.
+def _device_bo_step(m, u0, lr, iterations, chunks, obs_mask, sel_mask,
+                    alpha, beta, xi, acq_kind):
+    """One retrain -> predict -> acquisition step of the surrogate ``m`` on
+    tensors (through its mesh, when it has one).
 
     ``sel_mask`` folds the user's acquisition mask together with the
     test-grid padding; ``obs_mask`` marks observed grid points for the
     EI/POI incumbent. Returns (u, trajectory, mean, sd, masked
     acquisition), all on the device.
     """
-    u, traj = engine.train(u0, Xd, yd, maskd, bounds, lr, jitter,
-                           kernel=kernel, iterations=iterations,
-                           sparse=sparse)
-    predict_fn = engine.predict_vfe if sparse else engine.predict_exact
-    mean, var = predict_fn(u, Xd, yd, maskd, bounds, jitter, chunks,
-                           kernel=kernel, noiseless=False)
+    u, traj = m._fit(u0, lr, iterations)
+    mean, var = m._predict_chunks(u, chunks)
     sd = torch.sqrt(var)
     macq = _select(_acquisition(mean, sd, obs_mask, acq_kind, alpha, beta,
                                 xi), sel_mask)
@@ -137,8 +133,9 @@ class boptimizer:
     ``gp_iterations`` train; defaults to gp_iterations // 4. Each step's
     retrain continues from the previous step's parameters; pass
     refit_iterations=gp_iterations to reproduce the reference's
-    full-budget retrain, boptim.py:459-470). ``mesh`` is not ported yet:
-    the surrogate raises NotImplementedError for it.
+    full-budget retrain, boptim.py:459-470), mesh (forwarded to the
+    surrogate: its retrain and the full-grid prediction of every step shard
+    over the mesh's 'grid' axis, see :class:`gpr.reconstructor`).
     """
 
     def __init__(self,
@@ -332,12 +329,10 @@ class boptimizer:
         obs[:self._n_test] = ~np.isnan(
             np.asarray(self.y_sparse).ravel())
         u_new, traj, mean, sd, macq = _device_bo_step(
-            m.u, m._Xd, m._yd, m._maskd, m._bounds(),
-            float(m.learning_rate), m.jitter, self._chunks_d,
+            m, m.u, float(m.learning_rate), int(iterations), self._chunks_d,
             torch.as_tensor(obs, device=m.device), self._sel_mask_d,
             float(self.alpha), float(self.beta), float(self.xi),
-            kernel=m.kernel_type, iterations=int(iterations),
-            sparse=m.do_sparse, acq_kind=self.acquisition_function)
+            self.acquisition_function)
         m.u = u_new
         m._traj_list.append(traj)          # on the device until assembled
         self.gp_predictions.append((mean, sd))
@@ -487,10 +482,8 @@ class boptimizer:
             # through the engine so the surrogate's iterations stay as set.
             m = self.surrogate_model
             m.update_data(self.X_sparse, self.y_sparse)
-            m.u, traj = engine.train(
-                m.u, m._Xd, m._yd, m._maskd, m._bounds(),
-                float(m.learning_rate), m.jitter, kernel=m.kernel_type,
-                iterations=int(self.refit_iterations), sparse=m.do_sparse)
+            m.u, traj = m._fit(m.u, float(m.learning_rate),
+                               int(self.refit_iterations))
             m._traj_list.append(traj)
         self.save_results()
         if self.verbose:

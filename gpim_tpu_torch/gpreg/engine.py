@@ -40,6 +40,8 @@ from gpim_tpu_torch.ops import gram_kernels
 from gpim_tpu_torch.ops.gram import pairwise_sq_dist
 from gpim_tpu_torch.ops.linalg import safe_cholesky, solve_triangular
 from gpim_tpu_torch.ops.tri import tri_inverse
+from gpim_tpu_torch.parallel.distributed import (
+    all_reduce, copy_to_shards, reduce_from_shards)
 
 __all__ = [
     "constrain", "exact_loss", "mll_from_gram", "vfe_loss", "train",
@@ -289,47 +291,76 @@ def mll_from_gram(K, noise, ym, mask, jitter):
 # Sparse (VFE) bound with trainable inducing points
 # --------------------------------------------------------------------------
 
-def _vfe_loss_info(u, X, y, mask, bounds, jitter, kernel):
+def _enter_rows(tensors, group):
+    """The replicated ``tensors`` as they enter a rank's row-local work:
+    packed into one vector through :func:`copy_to_shards
+    <gpim_tpu_torch.parallel.distributed.copy_to_shards>`, so their
+    row-local gradients are summed over ``group`` by one all-reduce."""
+    flat = copy_to_shards(torch.cat([t.reshape(-1) for t in tensors]), group)
+    return [v.reshape(t.shape) for t, v in zip(
+        tensors, flat.split([t.numel() for t in tensors]))]
+
+
+def _vfe_loss_info(u, X, y, mask, bounds, jitter, kernel, group=None):
+    """The VFE bound and the Cholesky status of Kmm and B. ``X``, ``y`` and
+    ``mask`` may be one rank's share of the rows, ``group`` the ranks that
+    hold the others: every row sum (B - I, a, t, the diagonal's sum, the
+    row count and |ym|^2) leaves through one :func:`reduce_from_shards`,
+    and the parameters and Vm enter the rows through :func:`_enter_rows`,
+    so each rank's loss and gradients are the whole problem's. With
+    ``group`` None the same graph runs on all rows without collectives."""
     kfn = get_kernel_fn(kernel)
     p = constrain(u, bounds)
     Xu = p["Xu"]
     noise = p["noise"]
-    eye = torch.eye(Xu.shape[0], dtype=X.dtype, device=X.device)
+    m = Xu.shape[0]
+    eye = torch.eye(m, dtype=X.dtype, device=X.device)
     # Xu enters Kmm twice: autograd adds K1's gradient in both arguments
     Kmm = kfn(p, Xu, Xu) + jitter * eye
-    Kmn = kfn(p, Xu, X) * mask[None, :]
     Lm, info_m = safe_cholesky(Kmm)
     # explicit Lm^-1 turns the wide (m, n) triangular solve into a gemm
     Vm = tri_inverse(Lm)
+    keys = sorted(p)
+    rows = _enter_rows([p[k] for k in keys] + [Vm], group)
+    pr = dict(zip(keys, rows[:-1]))
+    Kmn = kfn(pr, pr["Xu"], X) * mask[None, :]
     ym = y * mask
-    B, a, t = _VFEWide.apply(Vm, Kmn, ym, noise, Lm)
+    G, a, t = _VFEWide.apply(rows[-1], Kmn, ym, pr["noise"], Lm)
+    kdiag = kernel_diag(kernel, pr, X) * mask
+    sums = reduce_from_shards(torch.cat([
+        G.reshape(-1), a, torch.stack([t, kdiag.sum(), mask.sum(),
+                                       torch.dot(ym, ym)])]), group)
+    B = eye + sums[:m * m].reshape(m, m)
+    a = sums[m * m:m * m + m]
+    t, kdiag_sum, n_obs, yy = sums[m * m + m:]
     LB, info_b = safe_cholesky(B)
     c = solve_triangular(LB, a, lower=True) / torch.sqrt(noise)
-    kdiag = kernel_diag(kernel, p, X) * mask
-    trace_term = kdiag.sum() / noise - t
-    nll = (0.5 * mask.sum() * (_LOG_2PI + torch.log(noise))
+    trace_term = kdiag_sum / noise - t
+    nll = (0.5 * n_obs * (_LOG_2PI + torch.log(noise))
            + torch.log(torch.diagonal(LB)).sum()
-           + 0.5 * torch.dot(ym, ym) / noise
+           + 0.5 * yy / noise
            - 0.5 * torch.dot(c, c)
            + 0.5 * trace_term)
     return nll - _log_jacobian(u, bounds), torch.stack([info_m, info_b])
 
 
-def vfe_loss(u, X, y, mask, bounds, jitter, *, kernel):
+def vfe_loss(u, X, y, mask, bounds, jitter, *, kernel, group=None):
     """Masked Titsias VFE bound (negated) with trainable inducing points
-    ``u['Xu']`` + MAP prior terms (gpim_tpu/gpreg/engine.py:344-375)."""
-    return _vfe_loss_info(u, X, y, mask, bounds, jitter, kernel)[0]
+    ``u['Xu']`` + MAP prior terms (gpim_tpu/gpreg/engine.py:344-375); with
+    ``group``, ``X``, ``y`` and ``mask`` are this rank's rows."""
+    return _vfe_loss_info(u, X, y, mask, bounds, jitter, kernel, group)[0]
 
 
 class _VFEWide(torch.autograd.Function):
     """The n-wide core of the VFE bound, with a closed-form backward
     (gpim_tpu/gpreg/engine.py:378-446).
 
-    Returns (B, a, t): B = I + A A^T, a = A ym, t = sum(A^2), where
-    A = Vm Kmn / sqrt(noise) is the whitened feature matrix. Whitening
-    BEFORE squaring keeps B's conditioning that of the whitened features in
-    float32. The backward runs one n-wide gemm: the identities
-    A Kmn^T = sqrt(noise) (B - I) Lm^T and Kmn ym = sqrt(noise) Lm a turn
+    Returns (G, a, t): G = A A^T, a = A ym, t = sum(A^2), where
+    A = Vm Kmn / sqrt(noise) is the whitened feature matrix (B = I + G,
+    summed over the row shards first). Whitening BEFORE squaring keeps B's
+    conditioning that of the whitened features in float32. The backward
+    runs one n-wide gemm: the identities A Kmn^T = sqrt(noise) G Lm^T and
+    Kmn ym = sqrt(noise) Lm a, which hold for any subset of the rows, turn
     dVm and dnoise into m^3 and m^2 work. ``Lm`` must be Vm^-1; it only
     evaluates those identities and takes no gradient (its gradient arrives
     through Vm).
@@ -338,28 +369,26 @@ class _VFEWide(torch.autograd.Function):
     @staticmethod
     def forward(ctx, Vm, Kmn, ym, noise, Lm):
         A = (Vm @ Kmn) / torch.sqrt(noise)
-        eye = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
-        B = eye + A @ A.T
+        G = A @ A.T
         a = A @ ym
-        ctx.save_for_backward(A, B, a, noise, Lm, ym)
-        return B, a, (A * A).sum()
+        ctx.save_for_backward(A, G, a, noise, Lm, ym)
+        return G, a, (A * A).sum()
 
     @staticmethod
-    def backward(ctx, dB, da, dt):
-        A, B, a, noise, Lm, ym = ctx.saved_tensors
+    def backward(ctx, dG, da, dt):
+        A, G, a, noise, Lm, ym = ctx.saved_tensors
         eye = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
-        # dA = (dB + dB^T + 2 dt I) A + da ym^T =: S A + da ym^T
-        S = dB + dB.T + 2.0 * dt * eye
-        BmI = B - eye                                     # = A A^T
+        # dA = (dG + dG^T + 2 dt I) A + da ym^T =: S A + da ym^T
+        S = dG + dG.T + 2.0 * dt * eye
         # dKmn = Vm^T dA / sqrt(noise), Vm^T = Lm^-T: fold S through the
         # same whitened A (one wide gemm) plus a rank-1 term
         M1 = solve_triangular(Lm.T, S, lower=False)
         w = solve_triangular(Lm.T, da, lower=False)
         dKmn = (M1 @ A + w[:, None] * ym[None, :]) / torch.sqrt(noise)
-        dVm = S @ (BmI @ Lm.T) + torch.outer(da, Lm @ a)
+        dVm = S @ (G @ Lm.T) + torch.outer(da, Lm @ a)
         dym = A.T @ da
         # noise enters only through A's 1/sqrt(noise)
-        dnoise = -((S * BmI).sum() + torch.dot(da, a)) / (2.0 * noise)
+        dnoise = -((S * G).sum() + torch.dot(da, a)) / (2.0 * noise)
         return dVm, dKmn, dym, dnoise, None
 
 
@@ -483,7 +512,7 @@ def adam_segments(u0, lr, iterations, build_precond, loss_iters,
 
 
 def train(u0, X, y, mask, bounds, lr, jitter, *, kernel, iterations,
-          sparse=False):
+          sparse=False, group=None):
     """Run ``iterations`` Adam steps (:func:`adam_steps`) on the exact MLL
     or, with ``sparse``, the VFE bound (``u0`` then holds 'Xu'); returns
     (final_u, trajectory dict).
@@ -491,12 +520,20 @@ def train(u0, X, y, mask, bounds, lr, jitter, *, kernel, iterations,
     The trajectory holds the post-update constrained hyperparameters of
     every iteration (and the inducing points, when sparse) plus the
     pre-update loss. The Cholesky status of every step (of Kmm and B, when
-    sparse) is checked once at the end.
+    sparse) is checked once at the end. With ``group`` (sparse only),
+    ``X``, ``y`` and ``mask`` are this rank's share of the rows, and every
+    rank takes the same steps as one process on all of them.
     """
-    loss_info = _vfe_loss_info if sparse else _exact_loss_info
+    if sparse:
+        loss_info = lambda uu: _vfe_loss_info(  # noqa: E731
+            uu, X, y, mask, bounds, jitter, kernel, group)
+    elif group is not None:
+        raise ValueError("the exact MLL trains on all rows of every rank")
+    else:
+        loss_info = lambda uu: _exact_loss_info(  # noqa: E731
+            uu, X, y, mask, bounds, jitter, kernel)
     u, u_traj, losses = adam_steps(
-        lambda uu: loss_info(uu, X, y, mask, bounds, jitter, kernel), u0, lr,
-        iterations, _VFE_FACTORS if sparse else ("",))
+        loss_info, u0, lr, iterations, _VFE_FACTORS if sparse else ("",))
     with torch.no_grad():
         # constrain the raw trajectory in one batched pass
         traj = _record(constrain(u_traj, bounds))
@@ -542,10 +579,12 @@ def predict_exact(u, X, y, mask, bounds, jitter, Xtest_chunks, *,
 
 @torch.no_grad()
 def predict_vfe(u, X, y, mask, bounds, jitter, Xtest_chunks, *,
-                kernel, noiseless=False):
+                kernel, noiseless=False, group=None):
     """Sparse (VFE) GP predictive mean/variance over chunked test points
     (``u`` holds 'Xu'); chunks run one after another, as in
-    :func:`predict_exact`."""
+    :func:`predict_exact`. With ``group``, ``X``, ``y`` and ``mask`` are
+    this rank's share of the training rows, and their (m, m) and (m,) sums
+    are all-reduced over it once."""
     kfn = get_kernel_fn(kernel)
     p = constrain(u, bounds)
     Xu = p["Xu"]
@@ -559,10 +598,13 @@ def predict_vfe(u, X, y, mask, bounds, jitter, Xtest_chunks, *,
     Vm = tri_inverse(Lm)
     A = (Vm @ Kmn) / torch.sqrt(noise)
     del Kmn
-    LB, info_b = safe_cholesky(eye + A @ A.T)
-    VB = tri_inverse(LB)
-    c = (VB @ (A @ (y * mask))) / torch.sqrt(noise)
+    m = A.shape[0]
+    sums = all_reduce(torch.cat([(A @ A.T).reshape(-1), A @ (y * mask)]),
+                      group)
     del A
+    LB, info_b = safe_cholesky(eye + sums[:m * m].reshape(m, m))
+    VB = tri_inverse(LB)
+    c = (VB @ sums[m * m:]) / torch.sqrt(noise)
     n_chunks, chunk = Xtest_chunks.shape[:2]
     means = torch.empty((n_chunks, chunk), dtype=X.dtype, device=X.device)
     variances = torch.empty_like(means)

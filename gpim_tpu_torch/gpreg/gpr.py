@@ -15,8 +15,16 @@ points, initialised as a strided subsample of the observations, and
 records their trajectory in ``hyperparams['inducing_points']``.
 
 ``step()`` trains, predicts and ranks the grid by an acquisition function
-(the exploration step of ``gpim_tpu``). Not ported yet, and raising
-``NotImplementedError``: ``mesh=`` (the parallel slice).
+(the exploration step of ``gpim_tpu``).
+
+``mesh=`` (a ``DeviceMesh`` with a 'grid' axis, ``True``, or the world
+size; :mod:`gpim_tpu_torch.parallel`) shards the rows of every prediction
+tile over 'grid' for both models, and the sparse model's training rows too
+when their padded count divides the axis: each rank then sums its rows'
+share of the bound's (m, m) and (m,) terms and one all-reduce a step makes
+them whole. The exact model trains on every rank, as in ``gpim_tpu``
+(one Cholesky stays rank-local). Every rank passes the same data and gets
+the same results.
 """
 
 import time
@@ -69,7 +77,9 @@ class reconstructor:
     the CUDA device, RuntimeError without one; False: the CPU), verbose,
     seed, and kwargs: amplitude (variance bounds), precision
     ('single'/'double'; default: double on the CPU, single on CUDA),
-    jitter, isotropic.
+    jitter, isotropic, mesh (a ``DeviceMesh`` with a 'grid' axis, True for
+    the whole world, or its size: prediction tiles, and the sparse model's
+    training rows, shard over 'grid').
     """
 
     def __init__(self,
@@ -86,10 +96,10 @@ class reconstructor:
                  verbose=1,
                  seed=0,
                  **kwargs):
+        self._mesh = None
         if kwargs.get("mesh") not in (None, False):
-            raise NotImplementedError(
-                "mesh= is not ported yet; it comes with the parallel slice "
-                "of gpim_tpu_torch")
+            from gpim_tpu_torch.parallel.mesh import resolve_mesh
+            self._mesh = resolve_mesh(kwargs["mesh"])
         if kernel not in ("RBF", "Matern52", "RationalQuadratic"):
             raise NotImplementedError(
                 "Select one of the currently available kernels: "
@@ -191,6 +201,15 @@ class reconstructor:
         self._Xd = self._tensor(Xp)
         self._yd = self._tensor(yp)
         self._maskd = self._tensor(mask)
+        self._rows = (self._Xd, self._yd, self._maskd, None)
+        if self._mesh is not None and self.do_sparse:
+            from gpim_tpu_torch.parallel import mesh as meshmod
+            if len(Xp) % meshmod.axis_size(self._mesh, "grid") == 0:
+                # the VFE is a sum over rows: each rank takes its share
+                self._rows = tuple(
+                    meshmod.shard_batch(t, self._mesh)
+                    for t in self._rows[:3]) + (
+                        meshmod.axis_group(self._mesh, "grid"),)
 
     def update_data(self, X, y):
         """Re-prepares raw grid data and swaps the training set in place."""
@@ -228,11 +247,8 @@ class reconstructor:
         if self.verbose:
             print('Model training...')
         with self.timer.phase("train", self.device):
-            self.u, traj = engine.train(
-                self.u, self._Xd, self._yd, self._maskd, self._bounds(),
-                float(self.learning_rate), self.jitter,
-                kernel=self.kernel_type, iterations=int(self.iterations),
-                sparse=self.do_sparse)
+            self.u, traj = self._fit(self.u, float(self.learning_rate),
+                                     int(self.iterations))
         traj = {k: v.cpu().numpy() for k, v in traj.items()}
         self._traj_list.append(traj)
         self._assemble_hyperparams()
@@ -253,6 +269,33 @@ class reconstructor:
                       np.around(traj["variance"][-1], 4),
                       np.around(traj["lengthscale"][-1], 4),
                       np.around(traj["noise"][-1], 7)))
+
+    def _fit(self, u0, lr, iterations):
+        """:func:`engine.train` from ``u0`` on this model's training rows
+        (this rank's share of them, when they are sharded)."""
+        X, y, mask, group = self._rows
+        return engine.train(u0, X, y, mask, self._bounds(), lr, self.jitter,
+                            kernel=self.kernel_type, iterations=iterations,
+                            sparse=self.do_sparse, group=group)
+
+    def _predict_chunks(self, u, chunks):
+        """Predictive mean and variance (noise included) over the test
+        tiles ``chunks`` (n_chunks, chunk, d), flat; with a mesh, each rank
+        computes its rows of every tile and the rows are gathered."""
+        X, y, mask, group = self._rows
+
+        def predict(tiles):
+            if self.do_sparse:
+                return engine.predict_vfe(
+                    u, X, y, mask, self._bounds(), self.jitter, tiles,
+                    kernel=self.kernel_type, group=group)
+            return engine.predict_exact(u, X, y, mask, self._bounds(),
+                                        self.jitter, tiles,
+                                        kernel=self.kernel_type)
+        if self._mesh is None:
+            return predict(chunks)
+        from gpim_tpu_torch.parallel.mesh import predict_rows
+        return predict_rows(predict, chunks, self._mesh)
 
     def _assemble_hyperparams(self):
         """Concatenate trajectories across train() calls, as the
@@ -297,12 +340,7 @@ class reconstructor:
                         dtypes.round_up(len(self.Xtest), 128))
             chunks, n_test = engine.chunk_rows(
                 np.nan_to_num(self.Xtest), chunk)
-            predict_fn = engine.predict_vfe if self.do_sparse \
-                else engine.predict_exact
-            mean, var = predict_fn(
-                self.u, self._Xd, self._yd, self._maskd, self._bounds(),
-                self.jitter, self._tensor(chunks),
-                kernel=self.kernel_type, noiseless=False)
+            mean, var = self._predict_chunks(self.u, self._tensor(chunks))
             mean = mean.cpu().numpy()[:n_test]
             sd = np.sqrt(var.cpu().numpy()[:n_test])
         mean[nan_rows] = np.nan

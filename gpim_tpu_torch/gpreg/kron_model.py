@@ -91,14 +91,23 @@ class KronEngine:
         return u, {"lengthscale": p["lengthscale"], "noise": p["noise"],
                    "loss": losses}
 
-    def predict(self, u, Y, bounds, jitter, Xtest_clean):
+    def predict(self, u, Y, bounds, jitter, Xtest_clean, mesh=None):
         """Predictive mean and variance (tensors) at the NaN-free test
-        points ``Xtest_clean`` (numpy (n_test, d))."""
+        points ``Xtest_clean`` (numpy (n_test, d)). With a mesh, each rank
+        computes its rows of every tile against the replicated
+        eigendecompositions, and the rows are gathered."""
         chunk = min(_PREDICT_CHUNK,
                     dtypes.round_up(max(len(Xtest_clean), 1), 128))
         chunks, n_test = engine.chunk_rows(np.asarray(Xtest_clean), chunk)
         chunks_d = torch.as_tensor(chunks, dtype=self.dtype,
                                    device=self.device)
-        mean, var = _predict(u, self._axes, Y, bounds, jitter, chunks_d,
-                             self.kernel)
+
+        def predict(tiles):
+            return _predict(u, self._axes, Y, bounds, jitter, tiles,
+                            self.kernel)
+        if mesh is None:
+            mean, var = predict(chunks_d)
+        else:
+            from gpim_tpu_torch.parallel.mesh import predict_rows
+            mean, var = predict_rows(predict, chunks_d, mesh)
         return mean[:n_test], var[:n_test]

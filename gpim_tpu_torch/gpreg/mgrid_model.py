@@ -35,8 +35,17 @@ the dominant buffers beside, on CUDA, the measured peak of a training run
 Not carried from ``gpim_tpu``, each a TPU artefact: the 128-multiple pad
 dodge (``pad_dodge``, ``GPIM_TPU_PAD_DODGE``) and its non-finite check, and
 the fused whole-training device program (``_train_fused``, ``_FUSED_MAX_G``;
-eager PyTorch has the one host segment loop with the same schedule). Not
-ported yet: ``mesh=``.
+eager PyTorch has the one host segment loop with the same schedule).
+
+With a mesh (``MaskedGridEngine(mesh=...)``, mgrid_model.py:135-253,
+352-416 of ``gpim_tpu``), each rank holds a block of the first grid axis of
+every G-sized vector (observations, mask, probes, the CG state): the mode
+products reshard through two all-to-alls when the mesh's 'grid' size
+divides the two leading grid axes (:func:`ski.kron_mvm_bf_sharded`), CG's
+inner products and the likelihood's sums are all-reduced, and the
+hyperparameters take the same steps on every rank. Prediction solves the
+same way, gathers alpha, and shards the test grid's first axis (or the
+scattered points' chunk rows) over 'grid'.
 """
 
 import math
@@ -125,27 +134,33 @@ def cartesian_axes_from_points(X_flat, dims, rtol=1e-6):
 # --------------------------------------------------------------------------
 
 def _loss(u, axes, mask_flat, g0, Qp, lam_n, y_flat, bounds, jitter, *,
-          kernel, grid_shape, cg_iters, record_iters=False, X0=None):
+          kernel, grid_shape, cg_iters, record_iters=False, X0=None,
+          shard=None):
     """The masked-lattice MAP objective (gpim_tpu mgrid_model.py:134-169):
     :func:`ski_model._loss` over the masked operator and all G cells, whose
     masked cells are noise-only rows as padded rows are there; with
     ``record_iters`` also the realized CG iterations. With ``X0`` the
     warm-started objective (mgrid_model.py:190-218): the solve starts from
     the split-space block ``X0`` and, with ``record_iters``, the second
-    output is (the solutions, the realized CG iterations)."""
-    mvm = ski.make_masked_grid_mvm(grid_shape, mask_flat, batch_first=True)
+    output is (the solutions, the realized CG iterations). With a
+    :class:`ski.GridShard`, the G-sized arguments are this rank's blocks."""
+    mvm = ski.make_masked_grid_mvm(grid_shape, mask_flat, batch_first=True,
+                                   shard=shard)
+    group = None if shard is None else shard.group
     if X0 is None:
-        core = ski.ski_mll_from_mvm(mvm, cg_iters, g0, return_iters=True)
+        core = ski.ski_mll_from_mvm(mvm, cg_iters, g0, return_iters=True,
+                                    group=group)
     else:
-        core_ws = ski.ski_mll_from_mvm(mvm, cg_iters, g0, warm_start=True)
+        core_ws = ski.ski_mll_from_mvm(mvm, cg_iters, g0, warm_start=True,
+                                       group=group)
         core = lambda *args: core_ws(*args, X0)  # noqa: E731
     return ski_model._loss(u, axes, core, Qp, lam_n, y_flat, mask_flat,
                            bounds, jitter, kernel=kernel,
-                           record_iters=record_iters)
+                           record_iters=record_iters, shard=shard)
 
 
 @torch.no_grad()
-def _build_precond(u, axes, mask_flat, bounds, *, kernel, rank):
+def _build_precond(u, axes, mask_flat, bounds, *, kernel, rank, shard=None):
     """The preconditioner's orthonormal Nystrom form (Q, lam_n): the
     factored :class:`ski.KronRoot`, noise-independent and fixed for a
     training segment; rank 0 gives an empty dense basis."""
@@ -154,15 +169,16 @@ def _build_precond(u, axes, mask_flat, bounds, *, kernel, rank):
             mask_flat.new_zeros((0,))
     p = _constrain(u, bounds)
     factors = ski.grid_kernel_factors(kernel, _kernel_params(p), axes)
-    Qp, lam_n, _, _ = ski.mgrid_split_root(factors, mask_flat, rank)
+    Qp, lam_n, _, _ = ski.mgrid_split_root(factors, mask_flat, rank,
+                                           shard=shard)
     return Qp, lam_n
 
 
 @torch.no_grad()
 def _predict_grid(u, axes, mask_flat, y_flat, t_axes, bounds, jitter, *,
-                  kernel, grid_shape, cg_iters, precond_rank):
+                  kernel, grid_shape, cg_iters, precond_rank, shard=None):
     predictor = ski.make_grid_predictor(kernel, axes, grid_shape, cg_iters,
-                                        precond_rank)
+                                        precond_rank, shard)
     p = _constrain(u, bounds)
     mean, var = predictor(_kernel_params(p), p["noise"] + jitter, mask_flat,
                           (y_flat - p["mean"]) * mask_flat, t_axes,
@@ -172,7 +188,7 @@ def _predict_grid(u, axes, mask_flat, y_flat, t_axes, bounds, jitter, *,
 
 @torch.no_grad()
 def _predict_points(u, axes, mask_flat, y_flat, Xt_chunks, bounds, jitter, *,
-                    kernel, grid_shape, cg_iters, precond_rank):
+                    kernel, grid_shape, cg_iters, precond_rank, shard=None):
     """Scattered test points: per-point Kronecker cross rows contracted
     mode by mode for the mean, the Nystrom extension for the variance, one
     chunk at a time (d K1 launches a chunk)."""
@@ -180,7 +196,7 @@ def _predict_points(u, axes, mask_flat, y_flat, Xt_chunks, bounds, jitter, *,
     kp = _kernel_params(p)
     am, Bmat, sel = ski.mgrid_solve_core(
         kernel, kp, axes, grid_shape, mask_flat, precond_rank, cg_iters,
-        p["noise"] + jitter, (y_flat - p["mean"]) * mask_flat)
+        p["noise"] + jitter, (y_flat - p["mean"]) * mask_flat, shard)
     d = len(axes)
     means, variances = [], []
     for xc in Xt_chunks:
@@ -210,10 +226,15 @@ class MaskedGridEngine:
     probes. ``precond_rank`` None means 1024 at 500k cells or more, else
     512 (a larger eigenspace costs little per CG iteration on the factored
     basis and saves iterations at scale).
+
+    With a ``mesh`` (its 'grid' axis of n ranks), this rank keeps its block
+    of the first grid axis of the mask, the observations and the probes;
+    over more than one rank, n must divide the two leading grid axes.
     """
 
     def __init__(self, kernel, axes, mask_grid, y_grid, dtype, device, *,
-                 cg_iters=64, n_probes=8, precond_rank=None, seed=0):
+                 cg_iters=64, n_probes=8, precond_rank=None, seed=0,
+                 mesh=None):
         self.kernel = kernel
         self.dtype = dtype
         self.device = device
@@ -234,10 +255,33 @@ class MaskedGridEngine:
         pm1 = np.asarray([-1.0, 1.0], np_dtype)
         # probes of the split operator, batch-first (a probe per row)
         self._g0 = t(rng.choice(pm1, size=(n_probes, G)))
+        self.mesh, self._shard = mesh, None
+        if mesh is not None:
+            self._shard = self._take_block(mesh)
         # the realized CG iterations of every step and the segment lengths
         # of the last train() (the adaptive schedule's record)
         self.last_cg_iters = np.zeros((0,), np_dtype)
         self.last_segments = []
+
+    def _take_block(self, mesh):
+        """Keep this rank's block of the mask, observations and probes;
+        returns its :class:`ski.GridShard`."""
+        from gpim_tpu_torch.parallel import mesh as meshmod
+        n = meshmod.axis_size(mesh, "grid")
+        if n > 1 and not ski.kron_shardable(self.grid_shape, n):
+            raise ValueError(
+                "the masked-lattice route shards its first grid axis: the "
+                "%d-rank 'grid' mesh axis must divide the two leading grid "
+                "axes %s" % (n, self.grid_shape[:2]))
+        rows = self.grid_shape[0] // n
+        r = meshmod.axis_rank(mesh, "grid")
+        cells = slice(r * self._mask.shape[0] // n,
+                      (r + 1) * self._mask.shape[0] // n)
+        self._mask = self._mask[cells].contiguous()
+        self._y = self._y[cells].contiguous()
+        self._g0 = self._g0[:, cells].contiguous()
+        return ski.GridShard(meshmod.axis_group(mesh, "grid"), n, r * rows,
+                             rows)
 
     def train(self, u0, bounds, lr, jitter, *, iterations,
               record_cg_iters=False, warm_start=False):
@@ -253,10 +297,11 @@ class MaskedGridEngine:
         cold ones up to the CG tolerance, the recorded loss's
         log-determinant is biased (:func:`ski.ski_mll_from_mvm`)."""
         kw = dict(kernel=self.kernel, grid_shape=self.grid_shape,
-                  cg_iters=self.cg_iters, record_iters=True)
+                  cg_iters=self.cg_iters, record_iters=True,
+                  shard=self._shard)
         build = lambda u: _build_precond(  # noqa: E731
             u, self._axes, self._mask, bounds, kernel=self.kernel,
-            rank=self.precond_rank)
+            rank=self.precond_rank, shard=self._shard)
         if warm_start:
             def loss_iters(u, pre, X):
                 loss, (X_new, it) = _loss(u, self._axes, self._mask,
@@ -328,21 +373,45 @@ class MaskedGridEngine:
         """Predictive mean and variance (tensors) at the NaN-free test points
         ``Xtest_clean`` (numpy (n_test, d)): through the cross factors when
         the points are a Cartesian grid of shape ``fulldims``, else by the
-        scattered-point path in chunks of up to 4096."""
+        scattered-point path in chunks of up to 4096. With the engine's
+        mesh, each rank predicts its block of the test grid's first axis
+        (or its rows of every chunk) and the blocks are gathered."""
         t_axes = None
         if fulldims is not None and len(fulldims) == len(self.grid_shape) \
                 and len(Xtest_clean) == math.prod(fulldims):
             t_axes = cartesian_axes_from_points(Xtest_clean, fulldims)
         kw = dict(kernel=self.kernel, grid_shape=self.grid_shape,
-                  cg_iters=self.cg_iters, precond_rank=self.precond_rank)
+                  cg_iters=self.cg_iters, precond_rank=self.precond_rank,
+                  shard=self._shard)
         t = lambda a: torch.as_tensor(  # noqa: E731
             np.asarray(a), dtype=self.dtype, device=self.device)
         if t_axes is not None:
-            return _predict_grid(u, self._axes, self._mask, self._y,
-                                 [t(a) for a in t_axes], bounds, jitter, **kw)
+            t_axes = [t(a) for a in t_axes]
+            if self.mesh is None:
+                return _predict_grid(u, self._axes, self._mask, self._y,
+                                     t_axes, bounds, jitter, **kw)
+            return self._predict_grid_sharded(u, t_axes, bounds, jitter, kw)
         Xt = np.asarray(Xtest_clean)
         chunks, n_t = engine.chunk_rows(
             Xt, min(_PREDICT_CHUNK, max(128, len(Xt))))
-        mean, var = _predict_points(u, self._axes, self._mask, self._y,
-                                    t(chunks), bounds, jitter, **kw)
+
+        def predict(tiles):
+            return _predict_points(u, self._axes, self._mask, self._y,
+                                   tiles, bounds, jitter, **kw)
+        if self.mesh is None:
+            mean, var = predict(t(chunks))
+        else:
+            from gpim_tpu_torch.parallel.mesh import predict_rows
+            mean, var = predict_rows(predict, t(chunks), self.mesh)
         return mean[:n_t], var[:n_t]
+
+    def _predict_grid_sharded(self, u, t_axes, bounds, jitter, kw):
+        """The Cartesian test grid's first axis in blocks over 'grid'
+        (:func:`~gpim_tpu_torch.parallel.mesh.shard_gather`), then
+        gathered."""
+        from gpim_tpu_torch.parallel.mesh import shard_gather
+        return shard_gather(
+            lambda block: _predict_grid(u, self._axes, self._mask, self._y,
+                                        [block] + t_axes[1:], bounds,
+                                        jitter, **kw),
+            t_axes[0], self.mesh)

@@ -34,6 +34,8 @@ from gpim_tpu_torch.kernels.transforms import (
     interval_forward, interval_log_jacobian, positive_forward)
 from gpim_tpu_torch.ops.linalg import safe_cholesky
 from gpim_tpu_torch.ops.tri import tri_inverse
+from gpim_tpu_torch.parallel.distributed import (
+    all_gather, all_reduce, reduce_from_shards)
 
 __all__ = [
     "broadcast_ls_bounds",
@@ -189,25 +191,26 @@ def _task_cov(p):
     return p["F"] @ p["F"].mT + torch.diag(p["task_var"])
 
 
-def _decouple(Kx, B, noise, Yc):
+def _decouple(Kx, B, noise, Yc, tasks=slice(None)):
     """Rotate the task basis by eigh(B): A = Kx (x) B + noise I becomes T
     systems A_t = lam_t Kx + noise I, factorised by one batched Cholesky.
     Returns (lam, Qb, L, info, Yt, at): the eigenvalues (clamped at 1e-12)
-    and eigenvectors of B, the factors (T, n, n) and their status (T,), the
-    rotated targets Yt (T, n) and at = A_t^-1 Yt_t (T, n)."""
+    and eigenvectors of B, the factors (T_s, n, n) and their status (T_s,)
+    of the rotated tasks ``tasks`` (a slice; all by default), the rotated
+    targets Yt (T, n) and at = A_t^-1 Yt_t (T_s, n) of those tasks."""
     lam, Qb = torch.linalg.eigh(B)
     lam = lam.clamp_min(1e-12)
     Yt = (Yc @ Qb).mT
     eye = torch.eye(Kx.shape[-1], dtype=Kx.dtype, device=Kx.device)
-    L, info = safe_cholesky(lam[:, None, None] * Kx + noise * eye)
-    at = torch.cholesky_solve(Yt[..., None], L)[..., 0]
+    L, info = safe_cholesky(lam[tasks, None, None] * Kx + noise * eye)
+    at = torch.cholesky_solve(Yt[tasks, :, None], L)[..., 0]
     return lam, Qb, L, info, Yt, at
 
 
 class _KronMTCore(torch.autograd.Function):
     """0.5 y^T A^-1 y + 0.5 logdet A for A = Kx (x) B + noise I, with
     vec(Yc) in row-major (n, T) order; returns (value, Cholesky status
-    (T,)).
+    (T_s,)).
 
     Autograd through eigh(B) would be unstable: the rank-1-plus-diagonal
     initial B has T - 1 exactly repeated eigenvalues, and eigh's backward
@@ -221,55 +224,77 @@ class _KronMTCore(torch.autograd.Function):
         dL/dKx    = 0.5 (sum_t lam_t A_t^-1 - at diag(lam) at^T)
         dL/dnoise = 0.5 (sum_t tr(A_t^-1) - |at|^2)
         dL/dYc    = at Qb^T
+
+    Sharded over the rotated tasks: with ``tasks`` a slice of them and
+    ``group`` the ranks that hold the other slices, the value is this
+    slice's share of the sum, and the backward returns this slice's share
+    of each total derivative (its rows of diag(c) - S, its terms of the
+    sums; S's rows need every task's ``at``, gathered once forward), so the
+    shares sum to the whole over ``group``.
     """
 
     @staticmethod
-    def forward(ctx, Kx, B, noise, Yc):
-        lam, Qb, L, info, Yt, at = _decouple(Kx, B, noise, Yc)
-        out = (0.5 * (Yt * at).sum()
+    def forward(ctx, Kx, B, noise, Yc, tasks, group):
+        lam, Qb, L, info, Yt, at = _decouple(Kx, B, noise, Yc, tasks)
+        out = (0.5 * (Yt[tasks] * at).sum()
                + torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum())
-        ctx.save_for_backward(Kx, lam, Qb, L, at)
+        at_all = all_gather(at, group, dim=0)
+        ctx.tasks = tasks
+        ctx.save_for_backward(Kx, lam, Qb, L, at, at_all)
         ctx.mark_non_differentiable(info)
         return out, info
 
     @staticmethod
     def backward(ctx, g, _g_info):
-        Kx, lam, Qb, L, at = ctx.saved_tensors
+        Kx, lam, Qb, L, at, at_all = ctx.saved_tensors
+        tasks = ctx.tasks
+        lam_s, Qb_s = lam[tasks], Qb[:, tasks]
         V = tri_inverse(L)
-        Inv = V.mT @ V                                    # A_t^-1 (T, n, n)
+        Inv = V.mT @ V                                    # A_t^-1 (T_s, n, n)
         del V
         tr_c = (Inv * Kx).sum(dim=(-2, -1))               # tr(A_t^-1 Kx)
-        S = at @ (Kx @ at.mT)                             # (T, T)
-        dB = 0.5 * g * (Qb @ (torch.diag(tr_c) - S) @ Qb.mT)
-        dKx = 0.5 * g * (torch.tensordot(lam, Inv, dims=1)
-                         - (at.mT * lam) @ at)
+        S = at @ (Kx @ at_all.mT)                         # (T_s, T)
+        D = torch.zeros_like(S)
+        D[:, tasks] = torch.diag(tr_c)
+        dB = 0.5 * g * (Qb_s @ (D - S) @ Qb.mT)
+        dKx = 0.5 * g * (torch.tensordot(lam_s, Inv, dims=1)
+                         - (at.mT * lam_s) @ at)
         dnoise = 0.5 * g * (torch.diagonal(Inv, dim1=-2, dim2=-1).sum()
                             - (at * at).sum())
-        dYc = g * (at.mT @ Qb.mT)
-        return dKx, dB, dnoise, dYc
+        dYc = g * (at.mT @ Qb_s.mT)
+        return dKx, dB, dnoise, dYc, None, None
 
 
-def _corr_loss(u, X, Y, bounds, jitter, *, kernel):
+def _corr_loss(u, X, Y, bounds, jitter, *, kernel, tasks=slice(None),
+               group=None):
     """Kronecker multitask NLL minus the lengthscale's log-Jacobian, and the
-    Cholesky status (T,); ``Y`` is (n, T)."""
+    Cholesky status (T_s,) of the rotated tasks ``tasks``; ``Y`` is (n, T).
+    With ``group``, this rank factorises only ``tasks``: Kx, B, the noise
+    and Yc enter through one :func:`copy_to_shards` and the task sum leaves
+    through :func:`reduce_from_shards`, so the loss and its gradients are
+    the whole model's on every rank."""
     kfn = get_kernel_fn(kernel)
     p = _constrain_corr(u, bounds)
     n, T = Y.shape
-    core, info = _KronMTCore.apply(kfn(p, X, X), _task_cov(p),
-                                   p["noise"] + jitter,
-                                   Y - p["mean"][None, :])
-    nll = core + 0.5 * n * T * _LOG_2PI
+    shared = engine._enter_rows(
+        [kfn(p, X, X), _task_cov(p), p["noise"] + jitter,
+         Y - p["mean"][None, :]], group)
+    core, info = _KronMTCore.apply(*shared, tasks, group)
+    nll = reduce_from_shards(core, group) + 0.5 * n * T * _LOG_2PI
     return nll - interval_log_jacobian(
         u["lengthscale"], bounds["ls_lo"], bounds["ls_hi"]), info
 
 
-def train_correlated(u0, X, Y, bounds, lr, jitter, *, kernel, iterations):
+def train_correlated(u0, X, Y, bounds, lr, jitter, *, kernel, iterations,
+                     tasks=slice(None), group=None):
     """Adam training of the Kronecker multitask model; ``Y`` is (n, T).
     Returns (final u, trajectory of lengthscale (iters, d), noise and loss
-    (iters,))."""
+    (iters,)). With ``group``, this rank factorises the rotated tasks
+    ``tasks`` and takes the same steps as one process."""
     u, u_traj, losses = engine.adam_steps(
-        lambda uu: _corr_loss(uu, X, Y, bounds, jitter, kernel=kernel), u0,
-        lr, iterations, _task_factors(Y.shape[1]))
+        lambda uu: _corr_loss(uu, X, Y, bounds, jitter, kernel=kernel,
+                              tasks=tasks, group=group), u0,
+        lr, iterations, _task_factors(Y.shape[1])[tasks])
     with torch.no_grad():
         ls = interval_forward(u_traj["lengthscale"], bounds["ls_lo"],
                               bounds["ls_hi"])
@@ -279,35 +304,38 @@ def train_correlated(u0, X, Y, bounds, lr, jitter, *, kernel, iterations):
 
 @torch.no_grad()
 def predict_correlated(u, X, Y, bounds, jitter, Xtest_chunks, *, kernel,
-                       noiseless=False):
+                       noiseless=False, tasks=slice(None), group=None):
     """Closed-form multitask predictive mean and variance, (n_chunks * chunk,
     T). In the rotated task basis the posterior decouples,
     f~_t(x*) ~ N(lam_t k*^T A_t^-1 y~_t, lam_t k** - lam_t^2 k*^T A_t^-1 k*),
-    and rotating back, Var(f_task) = sum_t Qb[task, t]^2 var~_t."""
+    and rotating back, Var(f_task) = sum_t Qb[task, t]^2 var~_t. With
+    ``group``, this rank computes the rotated tasks ``tasks`` and their
+    share of both sums, all-reduced once over ``group``."""
     kfn = get_kernel_fn(kernel)
     p = _constrain_corr(u, bounds)
     lam, Qb, L, info, _, alphas = _decouple(
         kfn(p, X, X), _task_cov(p), p["noise"] + jitter,
-        Y - p["mean"][None, :])
+        Y - p["mean"][None, :], tasks)
     V = tri_inverse(L)
     del L
     n_chunks, chunk = Xtest_chunks.shape[:2]
     T = Y.shape[1]
     means = torch.empty((n_chunks, chunk, T), dtype=X.dtype, device=X.device)
     variances = torch.empty_like(means)
-    lam_c = lam[:, None]
+    lam_c = lam[tasks, None]
+    Qb_s = Qb[:, tasks]
     for c in range(n_chunks):
         xc = Xtest_chunks[c]
         Ks = kfn(p, xc, X)                                # (chunk, n)
-        m_rot = lam_c * (alphas @ Ks.mT)                  # (T, chunk)
-        W = V @ Ks.mT                                     # (T, n, chunk)
+        m_rot = lam_c * (alphas @ Ks.mT)                  # (T_s, chunk)
+        W = V @ Ks.mT                                     # (T_s, n, chunk)
         v_rot = (lam_c * kernel_diag(kernel, p, xc)
                  - lam_c ** 2 * (W * W).sum(dim=-2)).clamp_min(0.0)
-        means[c] = (Qb @ m_rot).mT + p["mean"]
-        var = ((Qb ** 2) @ v_rot).mT
-        if not noiseless:
-            var = var + p["noise"]
-        variances[c] = var
+        means[c] = (Qb_s @ m_rot).mT
+        variances[c] = ((Qb_s ** 2) @ v_rot).mT
         del Ks, W
-    engine._check_cholesky(info, "predict", _task_factors(T))
+    both = all_reduce(torch.stack([means, variances]), group)
+    means = both[0] + p["mean"]
+    variances = both[1] if noiseless else both[1] + p["noise"]
+    engine._check_cholesky(info, "predict", _task_factors(T)[tasks])
     return means.reshape(-1, T), variances.reshape(-1, T)

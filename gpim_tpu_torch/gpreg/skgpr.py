@@ -34,8 +34,12 @@ Routes, chosen as ``gpim_tpu`` chooses them:
   dimension, the same solver over the interpolated operator, K1 for every
   kernel factor (:mod:`gpim_tpu_torch.gpreg.ski_model`).
 
-Not ported yet, and raising ``NotImplementedError`` when the model is
-built: ``mesh=`` (the parallel slice).
+``mesh=`` (a ``DeviceMesh`` with a 'grid' axis, ``True``, or the world
+size; :mod:`gpim_tpu_torch.parallel`) shards the test rows of every
+prediction over 'grid' on every route; the masked-lattice route also
+shards its training (the G-sized CG state, by blocks of the first grid
+axis), while the dense, spectral, Kronecker and off-lattice routes train
+replicated, as in ``gpim_tpu``.
 
 Reference defects stay fixed, as in ``gpim_tpu``: ``predict()`` without a
 test grid warns and predicts at the training points, and ``max_root`` is
@@ -101,10 +105,10 @@ class skreconstructor:
                  verbose=1,
                  seed=0,
                  **kwargs):
+        self._mesh = None
         if kwargs.get("mesh") not in (None, False):
-            raise NotImplementedError(
-                "mesh= is not ported yet; it comes with the parallel slice "
-                "of gpim_tpu_torch")
+            from gpim_tpu_torch.parallel.mesh import resolve_mesh
+            self._mesh = resolve_mesh(kwargs["mesh"])
         if kernel not in ("RBF", "Matern52", "Spectral"):
             # GPyTorch-parity surface (reference gpytorch_kernels.py:60-73)
             raise NotImplementedError(
@@ -229,7 +233,7 @@ class skreconstructor:
             self.kernel_type, lat_axes, ~np.isnan(y), y, self.dtype,
             self.device, cg_iters=opts["cg_iterations"],
             n_probes=opts["n_probes"], precond_rank=opts["precond_rank"],
-            seed=opts["seed"])
+            seed=opts["seed"], mesh=self._mesh)
         if self.verbose == 2:
             print("Masked-lattice grid:", np.shape(y))
 
@@ -389,7 +393,8 @@ class skreconstructor:
             if self._kron_engine is not None:
                 mean, var = self._kron_engine.predict(
                     {k: v[0] for k, v in self.u.items()}, self._Y_grid,
-                    self._bounds(), self.jitter, Xtest_clean)
+                    self._bounds(), self.jitter, Xtest_clean,
+                    mesh=self._mesh)
             elif self._mgrid_engine is not None:
                 mean, var = self._mgrid_engine.predict(
                     {k: v[0] for k, v in self.u.items()}, self._bounds(),
@@ -397,7 +402,8 @@ class skreconstructor:
             elif self._ski_engine is not None:
                 mean, var = self._ski_engine.predict(
                     {k: v[0] for k, v in self.u.items()}, self._yd,
-                    self._maskd, self._bounds(), self.jitter, Xtest_clean)
+                    self._maskd, self._bounds(), self.jitter, Xtest_clean,
+                    mesh=self._mesh)
             else:
                 nb = max(1, int(self.num_batches))
                 target = (-(-len(self.Xtest) // nb) if nb > 1
@@ -405,17 +411,7 @@ class skreconstructor:
                 chunk = min(dtypes.round_up(max(target, 1), 128),
                             dtypes.round_up(len(self.Xtest), 128))
                 chunks, n_test = engine.chunk_rows(Xtest_clean, chunk)
-                chunks = self._tensor(chunks)
-                if self.kernel_type == "Spectral":
-                    mean, var = structured.predict_spectral(
-                        self.u, self._Xd, self._yd, self._maskd, self.jitter,
-                        chunks)
-                else:
-                    mean, var = multi.predict_independent(
-                        self.u, self._Xd, self._yd[:, None], self._maskd,
-                        self._bounds(), self.jitter, chunks,
-                        kernel=self.kernel_type)
-                    mean, var = mean[:, 0], var[:, 0]
+                mean, var = self._predict_chunks(self._tensor(chunks))
                 mean, var = mean[:n_test], var[:n_test]
             mean = mean.cpu().numpy()
             sd = np.sqrt(var.cpu().numpy())
@@ -424,6 +420,24 @@ class skreconstructor:
         if self.verbose:
             print("Done")
         return mean.reshape(self.fulldims), sd.reshape(self.fulldims)
+
+    def _predict_chunks(self, chunks):
+        """The dense and spectral routes' mean and variance over the tiles
+        ``chunks``, flat; with a mesh, each rank computes its rows of every
+        tile and the rows are gathered."""
+        def predict(tiles):
+            if self.kernel_type == "Spectral":
+                return structured.predict_spectral(
+                    self.u, self._Xd, self._yd, self._maskd, self.jitter,
+                    tiles)
+            mean, var = multi.predict_independent(
+                self.u, self._Xd, self._yd[:, None], self._maskd,
+                self._bounds(), self.jitter, tiles, kernel=self.kernel_type)
+            return mean[:, 0], var[:, 0]
+        if self._mesh is None:
+            return predict(chunks)
+        from gpim_tpu_torch.parallel.mesh import predict_rows
+        return predict_rows(predict, chunks, self._mesh)
 
     def run(self):
         """Train, then predict. Returns (mean, sd, hyperparams)."""

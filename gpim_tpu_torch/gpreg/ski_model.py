@@ -44,6 +44,7 @@ from gpim_tpu_torch.gpreg import engine
 from gpim_tpu_torch.gpreg.multi import _constrain_task as _constrain
 from gpim_tpu_torch.kernels.transforms import interval_log_jacobian
 from gpim_tpu_torch.ops import ski
+from gpim_tpu_torch.parallel.distributed import all_reduce, copy_to_shards
 
 __all__ = ["SKIEngine"]
 
@@ -55,22 +56,30 @@ def _kernel_params(p):
 
 
 def _loss(u, grids, core, Qp, lam_n, y, mask_, bounds, jitter, *, kernel,
-          record_iters=False):
+          record_iters=False, shard=None):
     """The SKI MAP objective (gpim_tpu/gpreg/ski_model.py:43-67, and over
     the masked lattice mgrid_model.py:134-169): the SKI marginal likelihood
     ``core`` (:func:`ski.ski_mll` or :func:`ski.ski_mll_from_mvm` with
     ``return_iters``) over all rows of ``y``, less the exact
     0.5 (rows - n_obs) log(noise) of the rows ``mask_`` leaves out (noise
     only there), less the lengthscales' interval log-Jacobian; with
-    ``record_iters`` also the realized CG iterations."""
+    ``record_iters`` also the realized CG iterations. With ``shard`` (a
+    :class:`ski.GridShard`), ``y`` and ``mask_`` are this rank's block of
+    ``shard.n`` equal blocks: the observed count is summed over its group,
+    and the mean enters the block through :func:`copy_to_shards`, so its
+    gradient is summed too."""
     p = _constrain(u, bounds)
-    yc = (y - p["mean"]) * mask_
+    mean = p["mean"]
+    n_eff, rows = mask_.sum(), y.shape[0]
+    if shard is not None:
+        mean = copy_to_shards(mean, shard.group)
+        n_eff, rows = all_reduce(n_eff, shard.group), rows * shard.n
+    yc = (y - mean) * mask_
     noise_pj = p["noise"] + jitter
-    n_eff = mask_.sum()
     factors = ski.grid_kernel_factors(kernel, _kernel_params(p), grids)
     base, it = core(factors, noise_pj, yc, Qp, lam_n)
     loss = (base + 0.5 * n_eff * _LOG_2PI
-            - 0.5 * (y.shape[0] - n_eff) * torch.log(noise_pj)
+            - 0.5 * (rows - n_eff) * torch.log(noise_pj)
             - interval_log_jacobian(u["lengthscale"], bounds["ls_lo"],
                                     bounds["ls_hi"]))
     return (loss, it) if record_iters else loss
@@ -171,16 +180,12 @@ class SKIEngine:
         return u, traj
 
     @torch.no_grad()
-    def predict(self, u, y, mask, bounds, jitter, Xtest_clean):
+    def predict(self, u, y, mask, bounds, jitter, Xtest_clean, mesh=None):
         """Predictive mean and variance (tensors, the noise included) at the
-        NaN-free test points ``Xtest_clean`` (numpy (m, d)), all at once."""
-        Xt = np.asarray(Xtest_clean, self.grids_np[0].dtype)
-        t_idx, t_wgt = ski.build_interp(Xt, self.grids_np)
-        t_i0, t_w0 = ski.build_interp_sep(Xt, self.grids_np)
-        t = lambda a: torch.as_tensor(  # noqa: E731
-            a, dtype=self.dtype, device=self.device)
-        ti = lambda a: torch.as_tensor(  # noqa: E731
-            a, dtype=torch.int64, device=self.device)
+        NaN-free test points ``Xtest_clean`` (numpy (m, d)), all at once.
+        With a mesh, each rank takes its block of the test rows against the
+        replicated training-side solve, and the rows are gathered
+        (:func:`~gpim_tpu_torch.parallel.mesh.shard_gather`)."""
         predictor = ski.make_ski_predictor(
             self.kernel, self._grids, self.grid_shape, self._idx, self._wgt,
             self._i0, self._w0, self._mask, self.cg_iters, self.rank,
@@ -188,9 +193,23 @@ class SKIEngine:
         p = _constrain(u, bounds)
         mask = mask[self._perm]
         yc = (y[self._perm] - p["mean"]) * mask
-        kss = torch.full((len(Xt),), 1.0, dtype=self.dtype,
-                         device=self.device) * p["variance"]
-        mean, var = predictor(_kernel_params(p), p["noise"] + jitter, yc,
-                              ti(t_idx), t(t_wgt), ti(t_i0), t(t_w0), kss,
-                              self.seed)
+        t = lambda a: torch.as_tensor(  # noqa: E731
+            a, dtype=self.dtype, device=self.device)
+        ti = lambda a: torch.as_tensor(  # noqa: E731
+            a, dtype=torch.int64, device=self.device)
+
+        def predict(Xt):
+            t_idx, t_wgt = ski.build_interp(Xt, self.grids_np)
+            t_i0, t_w0 = ski.build_interp_sep(Xt, self.grids_np)
+            kss = torch.full((len(Xt),), 1.0, dtype=self.dtype,
+                             device=self.device) * p["variance"]
+            return predictor(_kernel_params(p), p["noise"] + jitter, yc,
+                             ti(t_idx), t(t_wgt), ti(t_i0), t(t_w0), kss,
+                             self.seed)
+        Xt = np.asarray(Xtest_clean, self.grids_np[0].dtype)
+        if mesh is None:
+            mean, var = predict(Xt)
+        else:
+            from gpim_tpu_torch.parallel.mesh import shard_gather
+            mean, var = shard_gather(predict, Xt, mesh)
         return mean + p["mean"], var + p["noise"]   # noiseless=False

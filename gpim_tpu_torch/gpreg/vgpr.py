@@ -20,8 +20,15 @@ CPU with ``use_gpu=False``; without a CUDA device the default raises.
 The correlated mode's initial task factor ``F`` is the draw of
 ``jax.random.normal(PRNGKey(seed))`` that ``gpim_tpu`` makes
 (:func:`gpim_tpu_torch.ops.prng.jax_normal`), so one seed starts both
-packages at the same point. ``mesh=`` (the parallel slice) is not ported
-yet and raises ``NotImplementedError``.
+packages at the same point.
+
+``mesh=`` (a ``DeviceMesh`` with 'task' and 'grid' axes, ``True``, or the
+world size, which takes the squarest task-major split;
+:mod:`gpim_tpu_torch.parallel`) shards the channels (independent) or the
+rotated task systems (correlated) over 'task', and the rows of every
+prediction tile over 'grid'. When 'task' does not divide the channel count
+the model warns and runs unsharded, as ``gpim_tpu`` does. Every rank
+passes the same data and gets the same results.
 """
 
 import time
@@ -57,7 +64,9 @@ class vreconstructor:
     task factor of the correlated mode); kwargs: isotropic, precision
     ('single'/'double'; default: double on the CPU, single on CUDA), jitter,
     num_batches (test points per prediction chunk = their count /
-    num_batches), task_rank (correlated mode, default 1).
+    num_batches), task_rank (correlated mode, default 1), mesh (a
+    ('task', 'grid') ``DeviceMesh``, True for the whole world, or its
+    size).
     """
 
     def __init__(self,
@@ -73,10 +82,6 @@ class vreconstructor:
                  verbose=1,
                  seed=0,
                  **kwargs):
-        if kwargs.get("mesh") not in (None, False):
-            raise NotImplementedError(
-                "mesh= is not ported yet; it comes with the parallel slice "
-                "of gpim_tpu_torch")
         if kernel not in ("RBF", "Matern52"):
             raise NotImplementedError(
                 "Select one of the currently available kernels: "
@@ -134,6 +139,18 @@ class vreconstructor:
             self.u = {"lengthscale": u_ls, "noise": one, "mean": zeros,
                       "F": self._tensor(F), "task_var": full(one)}
 
+        self._mesh = None
+        if kwargs.get("mesh") not in (None, False):
+            from gpim_tpu_torch.parallel.mesh import axis_size, resolve_mesh
+            self._mesh = resolve_mesh(kwargs["mesh"], ("task", "grid"))
+            t_ax = axis_size(self._mesh, "task")
+            if num_tasks % t_ax:
+                warnings.warn(
+                    "num_tasks (%d) not divisible by mesh task axis "
+                    "(%d); running unsharded" % (num_tasks, t_ax),
+                    UserWarning)
+                self._mesh = None
+
         self._set_data(X_np, Y_np)
         self.hyperparams = {}
         self._traj_list = []
@@ -182,14 +199,19 @@ class vreconstructor:
         kw = dict(kernel=self.kernel_type, iterations=int(self.iterations))
         lr = float(self.learning_rate)
         with self.timer.phase("train", self.device):
-            if self.independent:
+            if self.independent and self._mesh is not None:
+                from gpim_tpu_torch.parallel import multichip
+                self.u, traj = multichip.train_step_sharded(
+                    self.u, self._Xd, self._Yd, self._maskd, self._bounds(),
+                    lr, self.jitter, self._mesh, **kw)
+            elif self.independent:
                 self.u, traj = multi.train_independent(
                     self.u, self._Xd, self._Yd, self._maskd, self._bounds(),
                     lr, self.jitter, **kw)
             else:
                 self.u, traj = multi.train_correlated(
                     self.u, self._Xd, self._Yd, self._bounds(), lr,
-                    self.jitter, **kw)
+                    self.jitter, **kw, **self._task_shard())
         traj = {k: v.cpu().numpy() for k, v in traj.items()}
         self._traj_list.append(traj)
         self.hyperparams = {
@@ -233,15 +255,7 @@ class vreconstructor:
                     dtypes.round_up(len(self.Xtest), 128))
         chunks, n_test = engine.chunk_rows(np.nan_to_num(self.Xtest), chunk)
         with self.timer.phase("predict", self.device):
-            if self.independent:
-                mean, var = multi.predict_independent(
-                    self.u, self._Xd, self._Yd, self._maskd, self._bounds(),
-                    self.jitter, self._tensor(chunks),
-                    kernel=self.kernel_type)
-            else:
-                mean, var = multi.predict_correlated(
-                    self.u, self._Xd, self._Yd, self._bounds(), self.jitter,
-                    self._tensor(chunks), kernel=self.kernel_type)
+            mean, var = self._predict_chunks(self._tensor(chunks))
             mean = mean.cpu().numpy()[:n_test]
             var = var.cpu().numpy()[:n_test]
         n_samples = kwargs.get("n_samples")
@@ -258,6 +272,41 @@ class vreconstructor:
         if self.verbose:
             print("Done")
         return mean.reshape(self.fulldims), sd.reshape(self.fulldims)
+
+    def _task_shard(self):
+        """The correlated mode's share of this rank: its slice of the
+        rotated tasks and the 'task' group (all tasks, no group, without a
+        mesh)."""
+        if self._mesh is None:
+            return {}
+        from gpim_tpu_torch.parallel import mesh as meshmod, multichip
+        return {"tasks": multichip.task_slice(self.num_tasks, self._mesh),
+                "group": meshmod.axis_group(self._mesh, "task")}
+
+    def _predict_chunks(self, chunks):
+        """Mean and variance (n_chunks * chunk, T) over the tiles
+        ``chunks``: with a mesh, each rank computes its channels (or its
+        share of the rotated tasks) on its rows of every tile, then both
+        are gathered."""
+        kw = dict(kernel=self.kernel_type)
+        if self.independent and self._mesh is not None:
+            from gpim_tpu_torch.parallel import multichip
+            return multichip.predict_sharded(
+                self.u, self._Xd, self._Yd, self._maskd, self._bounds(),
+                self.jitter, chunks, self._mesh, **kw)
+        if self.independent:
+            return multi.predict_independent(
+                self.u, self._Xd, self._Yd, self._maskd, self._bounds(),
+                self.jitter, chunks, **kw)
+
+        def predict(tiles):
+            return multi.predict_correlated(
+                self.u, self._Xd, self._Yd, self._bounds(), self.jitter,
+                tiles, **kw, **self._task_shard())
+        if self._mesh is None:
+            return predict(chunks)
+        from gpim_tpu_torch.parallel.mesh import predict_rows
+        return predict_rows(predict, chunks, self._mesh)
 
     def run(self):
         """Train, then predict. Returns (mean, sd, hyperparams)."""

@@ -27,6 +27,8 @@ def pairwise_sq_dist(X1, X2):
     snapped at its own floor, as ``vmap`` does in the JAX package: every
     reduction runs over the point axis only.
     """
+    gram_kernels.note_call("sqdist", X1, X1.shape[-2], X2.shape[-2],
+                           X1.shape[-1])
     if X1.is_cuda:
         return gram_kernels.sqdist(X1, X2)
     center = X1.mean(dim=-2, keepdim=True)

@@ -21,11 +21,15 @@ Each wrapper counts its launches in a plain int attribute
 (``sqdist.launches``, ``masked_system.launches``,
 ``rbf_bwd_reductions.launches``), incremented where the kernel is launched
 and nowhere else, so a run can show that its main path went through the
-kernels; a batched call is one launch. Wrappers check device, dtype, shape
+kernels; a batched call is one launch. Inside :func:`log_calls`, every call
+of K1, K2 or K3, on either device, also records its kernel, device type and
+operand shape, so a sharded run can show what share each rank computed.
+Wrappers check device, dtype, shape
 and contiguity, allocate their outputs with ``torch.empty``, launch on the
 current stream and never synchronise.
 """
 
+import contextlib
 import ctypes
 import math
 
@@ -34,7 +38,7 @@ import torch
 from gpim_tpu_torch.ops import _build
 
 __all__ = [
-    "MAX_D", "KERNEL_IDS", "min_traffic",
+    "MAX_D", "KERNEL_IDS", "min_traffic", "log_calls", "note_call",
     "sqdist", "sqdist_plain",
     "masked_system", "masked_system_plain",
     "rbf_bwd_reductions", "rbf_bwd_reductions_plain",
@@ -72,6 +76,33 @@ def min_traffic(name, n, d, m=None, itemsize=4, batch=1):
         return ((T * (2 * n * n + n) + n + n * d) * itemsize,
                 T * (2 + n + n * d) * itemsize, T * (2 * d + 6) * n * n)
     raise ValueError(name)
+
+
+_CALLS = []         # the open logs of log_calls()
+
+
+@contextlib.contextmanager
+def log_calls():
+    """Yields a list that receives ``(kernel, device type, shape)`` for
+    every K1, K2 and K3 call while the block runs: K1 ``(T, n, m, d)``, K2
+    and K3 ``(T, n, d)``, T = 1 unbatched."""
+    log = []
+    _CALLS.append(log)
+    try:
+        yield log
+    finally:
+        _CALLS.remove(log)
+
+
+def note_call(name, t, n, m_or_d, *rest):
+    """Record one call of kernel ``name`` on the device of ``t`` in every
+    open :func:`log_calls` log."""
+    if _CALLS:
+        entry = (name, t.device.type,
+                 (t.shape[0] if t.dim() == 3 else 1, int(n), int(m_or_d))
+                 + tuple(int(r) for r in rest))
+        for log in _CALLS:
+            log.append(entry)
 
 
 def _tasks(name, t, ndim):
@@ -264,6 +295,7 @@ def masked_system(Xs, mask, variance, noise_plus_jitter, alpha=None, *,
     only for RationalQuadratic. On CUDA, float32 agrees with
     :func:`masked_system_plain` to about 1e-6 of v (one exp of a distance
     that differs by a few ulp)."""
+    note_call("masked_system", Xs, *Xs.shape[-2:])
     if not Xs.is_cuda:
         return masked_system_plain(Xs, mask, variance, noise_plus_jitter,
                                    alpha, kernel=kernel)
@@ -359,6 +391,7 @@ def rbf_bwd_reductions(Ainv, Kt, alpha, mask, X):
     :func:`rbf_bwd_reductions_plain` of the same inputs to 1e-4 of its
     scale, the largest row sum of |W| (an n-term f32 sum in another
     order); in float64 to 1e-12 of it."""
+    note_call("rbf_bwd_reductions", Ainv, *X.shape)
     if not Ainv.is_cuda:
         return rbf_bwd_reductions_plain(Ainv, Kt, alpha, mask, X)
     tasks = _tasks("rbf_bwd_reductions", Ainv, 2)

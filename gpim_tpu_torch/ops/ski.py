@@ -56,8 +56,14 @@ form's semantics are kept) and the dense one-hot interpolation gemm of
 ``kron_eig_root`` (for slow minor-dimension gathers; a row gather gives the
 same root). The batch-first layout (probes as rows) stays the CG layout all
 the same: every CG vector is then a contiguous row and every mode product a
-plain or strided-batched gemm. Not ported yet: the multi-device mode
-products.
+plain or strided-batched gemm.
+
+The masked lattice's training also runs sharded (:class:`GridShard`): each
+rank holds a block of the first grid axis of every G-sized vector, the
+mode products reshard it with two all-to-alls (:func:`kron_mvm_bf_sharded`,
+``gpim_tpu``'s ``shard_map`` form), CG's inner products, the Nystrom core
+and the likelihood's sums are all-reduced, and the trace-estimated
+gradients of the kernel factors are summed over the ranks.
 """
 
 import math
@@ -70,10 +76,13 @@ from gpim_tpu_torch.kernels.functional import get_kernel_fn
 from gpim_tpu_torch.ops.kron_exact import modeprod
 from gpim_tpu_torch.ops.linalg import safe_cholesky, solve_triangular
 from gpim_tpu_torch.ops.prng import jax_rademacher
+from gpim_tpu_torch.parallel.distributed import (
+    all_gather, all_reduce, all_to_all)
 
 __all__ = [
-    "grid_kernel_factors", "kron_mvm_bf",
-    "make_masked_grid_mvm", "KronRoot", "split_root", "split_apply",
+    "grid_kernel_factors", "kron_mvm_bf", "GridShard", "kron_shardable",
+    "kron_mvm_bf_sharded", "make_masked_grid_mvm", "KronRoot",
+    "split_root", "split_apply",
     "mgrid_split_root", "batched_pcg", "batched_cg", "split_pcg",
     "ski_mll_from_mvm", "grid_kr_rows", "grid_nystrom_var",
     "grid_cross_factors", "make_grid_predictor", "mgrid_exact_var_probe",
@@ -158,21 +167,86 @@ def kron_mvm_bf(factors, t):
     return t
 
 
-def make_masked_grid_mvm(grid_shape, mask_flat, batch_first=False):
+class GridShard(NamedTuple):
+    """This rank's block of the first grid axis: rows ``start`` to
+    ``start + rows`` of ``g_1``, one of ``n`` equal blocks over the ranks of
+    ``group``. Every G-sized vector of the masked lattice is then its
+    contiguous block of G / n cells."""
+    group: object
+    n: int
+    start: int
+    rows: int
+
+
+def kron_shardable(grid_shape, n):
+    """True when the sharded mode products apply to ``n`` ranks: ``n``
+    divides both leading grid axes (the shard axis and the axis the
+    all-to-all parks it on), as ``gpim_tpu``'s ``kron_shardable``."""
+    return (len(grid_shape) >= 2 and grid_shape[0] % n == 0
+            and grid_shape[1] % n == 0)
+
+
+class _AllToAllAxes(torch.autograd.Function):
+    """Reshard a tensor over ``group``'s n ranks: split its axis ``split``
+    into n blocks, send block j to rank j, and concatenate the blocks
+    received along axis ``concat`` in rank order. The gradient takes the
+    inverse path."""
+
+    @staticmethod
+    def forward(ctx, t, group, n, split, concat):
+        ctx.args = (group, n, split, concat)
+        x = t.unflatten(split, (n, t.shape[split] // n)).movedim(split, 0)
+        y = all_to_all(x.contiguous(), group)
+        return y.movedim(0, concat).flatten(concat, concat + 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n, split, concat = ctx.args
+        return (_AllToAllAxes.apply(g, group, n, concat, split), None, None,
+                None, None)
+
+
+def kron_mvm_bf_sharded(factors, t, shard):
+    """:func:`kron_mvm_bf` for ``t`` (b, g_1 / n, g_2, ..., g_d), this
+    rank's block of the first grid axis (``gpim_tpu/ops/ski.py:196-238``):
+    the unsharded axes are contracted locally, one all-to-all parks the
+    shard on axis 2 so that axis 1 is whole and contracted, and one more
+    puts it back. Every intermediate stays shard-sized; the communication
+    is two all-to-alls of the block. Needs :func:`kron_shardable`;
+    differentiable."""
+    d = len(factors)
+    for k in range(d - 1, 0, -1):
+        t = _mode_bf(t, factors[k].mT, k)
+    t = _AllToAllAxes.apply(t, shard.group, shard.n, 2, 1)
+    t = _mode_bf(t, factors[0].mT, 0)
+    return _AllToAllAxes.apply(t, shard.group, shard.n, 1, 2)
+
+
+def make_masked_grid_mvm(grid_shape, mask_flat, batch_first=False,
+                         shard=None):
     """mvm(factors, noise_pj, v) = M . (x)factors (M . v) + noise_pj v, the
     masked-lattice operator; ``v`` is (G,) or (G, b), or batch-first (b, G)
     with ``batch_first`` (the CG layout). ``mask_flat`` (G,) is 1 at
     observed cells. The factors come from :func:`grid_kernel_factors`,
-    built once by the caller for as many products as it needs."""
+    built once by the caller for as many products as it needs. With a
+    :class:`GridShard` (batch-first only), ``v`` and ``mask_flat`` are this
+    rank's block of the cells and, over more than one rank, the mode
+    products are the sharded ones."""
     grid_shape = tuple(int(s) for s in grid_shape)
     if batch_first:
+        kron = kron_mvm_bf
+        if shard is not None:
+            grid_shape = (shard.rows,) + grid_shape[1:]
+            if shard.n > 1:
+                kron = lambda fs, t: kron_mvm_bf_sharded(  # noqa: E731
+                    fs, t, shard)
+
         def mvm(factors, noise_pj, v):
             squeeze = v.dim() == 1
             if squeeze:
                 v = v[None, :]
             b = v.shape[0]
-            t = kron_mvm_bf(factors,
-                            (v * mask_flat).reshape((b,) + grid_shape))
+            t = kron(factors, (v * mask_flat).reshape((b,) + grid_shape))
             out = mask_flat * t.reshape(b, -1) + noise_pj * v
             return out[0] if squeeze else out
         return mvm
@@ -287,7 +361,10 @@ class KronRoot(NamedTuple):
     #                               pruned tensor, ascending
     rl: torch.Tensor              # (r,) sqrt(lam_top), in mflat order
     C: torch.Tensor               # (r, r) Un diag(lam_n^-1/2)
-    mask: torch.Tensor            # (G,) observed-cell mask
+    mask: torch.Tensor            # (G,) observed-cell mask (this rank's
+    #                               block, sharded; Us[0] then its rows)
+    group: object = None          # the ranks holding the other blocks
+    n_total: int = 0              # G over every block (0: mask's length)
 
 
 def _kron_root_ops(q):
@@ -302,7 +379,7 @@ def _kron_root_ops(q):
         t = (q.mask * v).reshape((b,) + grid_shape)
         for k, U in enumerate(q.Us):
             t = _mode_bf(t, U.mT, k)                  # applies U_k^T
-        sel = t.reshape(b, Gp).index_select(1, q.mflat)
+        sel = all_reduce(t.reshape(b, Gp).index_select(1, q.mflat), q.group)
         return (sel * q.rl) @ q.C
 
     def Qm(w):
@@ -317,22 +394,26 @@ def _kron_root_ops(q):
     return QT, Qm
 
 
-def split_apply(Q, lam_n, noise_pj, vec_axis=0):
+def split_apply(Q, lam_n, noise_pj, vec_axis=0, group=None):
     """(pisqrt, logdetP) for P = noise_pj I + Q diag(lam_n) Q^T:
     ``pisqrt(v)`` applies P^-1/2 to a vector (n,) or to a block, (n, b) for
     ``vec_axis`` 0 or batch-first (b, n) for 1; ``logdetP`` is exact. ``Q``
     is a dense (n, r) basis (:func:`split_root`) or a :class:`KronRoot`
-    (:func:`mgrid_split_root`). Rank 0 gives pisqrt = v / sqrt(noise)."""
+    (:func:`mgrid_split_root`). Rank 0 gives pisqrt = v / sqrt(noise).
+    With ``group``, a dense ``Q`` holds this rank's equal block of the rows
+    of every rank's (the sharded masked lattice's empty rank-0 basis), so
+    logdetP counts the rows of all of them."""
     s = noise_pj.rsqrt()
     dd = (lam_n + noise_pj).rsqrt() - s
     if isinstance(Q, KronRoot):
         QT, Qm = _kron_root_ops(Q)
-        n_total = Q.mask.shape[0]
+        n_total = Q.n_total or Q.mask.shape[0]
 
         def apply_bf(v):
             return s * v + Qm(QT(v) * dd)
     else:
-        n_total = Q.shape[0]
+        n_total = Q.shape[0] * (1 if group is None
+                                else torch.distributed.get_world_size(group))
 
         def apply_bf(v):
             return s * v + ((v @ Q) * dd) @ Q.mT
@@ -371,7 +452,8 @@ def _kr_gram(sel, lam_top, mask_flat, block_bytes=_BLOCK_BYTES):
     return N
 
 
-def mgrid_split_root(factors, mask_flat, rank, dim_cap="auto"):
+def mgrid_split_root(factors, mask_flat, rank, dim_cap="auto",
+                     shard=None):
     """:func:`split_root` of the masked-lattice operator, factored: returns
     (KronRoot, lam_n, Un, modes) with modes = (lam_top, Us, mdim, sel) in the
     ascending flat-mode order every piece shares (``sel[k]`` =
@@ -382,6 +464,11 @@ def mgrid_split_root(factors, mask_flat, rank, dim_cap="auto"):
     (right for the training preconditioner, where a cap can only cost CG
     iterations); None selects uncapped, as prediction must, because its
     Nystrom variance uses this eigenspace with no CG behind it.
+
+    With a :class:`GridShard`, ``mask_flat`` is this rank's block of the
+    cells: the Nystrom core is summed over the ranks, the basis applies to
+    blocks (its first table holds this rank's rows), and the modes stay
+    whole.
     """
     d = len(factors)
     if dim_cap == "auto":
@@ -394,9 +481,19 @@ def mgrid_split_root(factors, mask_flat, rank, dim_cap="auto"):
     lam_top = lam_top[order]
     mdim = [m[order] for m in mdim]
     sel = [U[:, m] for U, m in zip(Us, mdim)]
-    lam_n, Un, inv_root = _orth_eig(_kr_gram(sel, lam_top, mask_flat))
-    q = KronRoot(Us=tuple(Us), mflat=mflat, rl=lam_top.sqrt(),
-                 C=Un * inv_root[None, :], mask=mask_flat)
+    if shard is None:
+        N = _kr_gram(sel, lam_top, mask_flat)
+        q = KronRoot(Us=tuple(Us), mflat=mflat, rl=lam_top.sqrt(), C=None,
+                     mask=mask_flat)
+    else:
+        rows = slice(shard.start, shard.start + shard.rows)
+        N = all_reduce(_kr_gram([sel[0][rows]] + sel[1:], lam_top,
+                                mask_flat), shard.group)
+        q = KronRoot(Us=(Us[0][rows],) + tuple(Us[1:]), mflat=mflat,
+                     rl=lam_top.sqrt(), C=None, mask=mask_flat,
+                     group=shard.group, n_total=shard.n * mask_flat.shape[0])
+    lam_n, Un, inv_root = _orth_eig(N)
+    q = q._replace(C=Un * inv_root[None, :])
     return q, lam_n, Un, (lam_top, Us, mdim, sel)
 
 
@@ -405,7 +502,7 @@ def mgrid_split_root(factors, mask_flat, rank, dim_cap="auto"):
 # --------------------------------------------------------------------------
 
 def batched_pcg(mvm, pinv, B, iters, return_iters=False, vec_axis=0,
-                x0=None, tol_ref=None):
+                x0=None, tol_ref=None, group=None):
     """Preconditioned CG for A X = B, all columns at once
     (gpim_tpu/ops/ski.py:698-799): returns (X, t_diags, t_offs[, realized
     iterations]). ``vec_axis`` 0: B is (n, b), a solution per column; 1:
@@ -418,6 +515,11 @@ def batched_pcg(mvm, pinv, B, iters, return_iters=False, vec_axis=0,
     |B|^2 as the reference of the relative exit test; pass the original
     right-hand sides' norms with ``x0``, or the test tightens with the
     smaller initial residual and the warm start saves nothing.
+
+    With ``group`` (batch-first only), each rank holds a block of every
+    vector's entries (``mvm`` and ``pinv`` take blocks): the inner products
+    are all-reduced over it, so every rank takes the same steps and exits
+    at the same iteration.
 
     Converged columns freeze: their state stops and their remaining
     tridiagonal rows stay the preallocated identity block (t_diag = 1,
@@ -444,8 +546,8 @@ def batched_pcg(mvm, pinv, B, iters, return_iters=False, vec_axis=0,
         X, R = x0, B - mvm(x0)
     Z = pinv(R)
     P = Z
-    rz = (R * Z).sum(1)
-    rs0 = (R * R).sum(1)
+    rz, rs0 = all_reduce(torch.stack([(R * Z).sum(1), (R * R).sum(1)]),
+                         group)
     eps = torch.finfo(B.dtype).eps
     tol = (rs0 if tol_ref is None else tol_ref).clamp_min(1e-30) \
         * (100.0 * eps) ** 2
@@ -463,15 +565,15 @@ def batched_pcg(mvm, pinv, B, iters, return_iters=False, vec_axis=0,
         live = ~done
         k_real += live.any()
         AP = mvm(P)
-        denom = (P * AP).sum(1)
+        denom = all_reduce((P * AP).sum(1), group)
         pos = denom > 0
         alpha = torch.where(live & pos, rz / torch.where(pos, denom, one),
                             zero)
         X = X + alpha[:, None] * P
         R = R - alpha[:, None] * AP
         Z = pinv(R)
-        rz_new = (R * Z).sum(1)
-        rs_new = (R * R).sum(1)
+        rz_new, rs_new = all_reduce(
+            torch.stack([(R * Z).sum(1), (R * R).sum(1)]), group)
         beta = torch.where(live, rz_new / torch.where(rz > 0, rz, one), zero)
         P = torch.where(live[:, None], Z + beta[:, None] * P, P)
         safe_alpha = torch.where(alpha > 0, alpha, one)
@@ -488,20 +590,22 @@ def batched_pcg(mvm, pinv, B, iters, return_iters=False, vec_axis=0,
 
 
 def batched_cg(mvm, B, iters, vec_axis=0, return_iters=False, x0=None,
-               tol_ref=None):
+               tol_ref=None, group=None):
     """Unpreconditioned :func:`batched_pcg` (same frozen-column contract,
-    the same warm start)."""
+    the same warm start, the same sharding)."""
     return batched_pcg(mvm, lambda r: r, B, iters, vec_axis=vec_axis,
-                       return_iters=return_iters, x0=x0, tol_ref=tol_ref)
+                       return_iters=return_iters, x0=x0, tol_ref=tol_ref,
+                       group=group)
 
 
-def split_pcg(mvm, pisqrt, B, iters, return_iters=False, vec_axis=0):
+def split_pcg(mvm, pisqrt, B, iters, return_iters=False, vec_axis=0,
+              group=None):
     """Split-preconditioned CG for A X = B: plain CG on
     P^-1/2 A P^-1/2 from P^-1/2 B, mapped back by P^-1/2. Same outputs as
     :func:`batched_pcg`; mvm and pisqrt share ``vec_axis``'s layout."""
     out = batched_pcg(lambda v: pisqrt(mvm(pisqrt(v))), lambda r: r,
                       pisqrt(B), iters, return_iters=return_iters,
-                      vec_axis=vec_axis)
+                      vec_axis=vec_axis, group=group)
     return (pisqrt(out[0]),) + tuple(out[1:])
 
 
@@ -531,25 +635,32 @@ def _slq_from_tridiag(t_diags, t_offs, probe_sqnorms):
 class _SKIMLL(torch.autograd.Function):
     """0.5 yc^T A^-1 yc + 0.5 logdet A, the realized CG iterations and the
     split-space solutions for A = mvm(factors, noise_pj, .), the solve
-    started from ``X0`` (None: zeros); see :func:`ski_mll_from_mvm`."""
+    started from ``X0`` (None: zeros); see :func:`ski_mll_from_mvm`. With
+    ``group``, the G-sized vectors are this rank's blocks: their inner
+    products and the factors' and noise's gradients are summed over it."""
 
     @staticmethod
-    def forward(ctx, mvm, cg_iters, g0, Q, lam_n, X0, noise_pj, yc,
+    def forward(ctx, mvm, cg_iters, g0, Q, lam_n, X0, group, noise_pj, yc,
                 *factors):
-        pisqrt, logdetP = split_apply(Q, lam_n, noise_pj, vec_axis=1)
+        pisqrt, logdetP = split_apply(Q, lam_n, noise_pj, vec_axis=1,
+                                        group=group)
         B = torch.cat([pisqrt(yc[None, :]), g0])
         Xt, t_diags, t_offs, k_real = batched_cg(
             lambda v: pisqrt(mvm(factors, noise_pj, pisqrt(v))), B,
             cg_iters, vec_axis=1, return_iters=True, x0=X0,
-            tol_ref=None if X0 is None else (B * B).sum(1))
+            tol_ref=(None if X0 is None
+                     else all_reduce((B * B).sum(1), group)), group=group)
         X = pisqrt(Xt)
         alpha, solves = X[0], X[1:]                  # A^-1 yc, A^-1 z_i
         w = pisqrt(g0)                               # P^-1 z = P^-1/2 z~
         reached = int(k_real)          # rows beyond it are the identity
+        sums = all_reduce(torch.cat([torch.dot(yc, alpha)[None],
+                                     (g0 * g0).sum(1)]), group)
         logdet = logdetP + _slq_from_tridiag(
-            t_diags[:reached, 1:], t_offs[:reached, 1:], (g0 * g0).sum(1))
-        out = 0.5 * torch.dot(yc, alpha) + 0.5 * logdet
+            t_diags[:reached, 1:], t_offs[:reached, 1:], sums[1:])
+        out = 0.5 * sums[0] + 0.5 * logdet
         ctx.mvm = mvm
+        ctx.group = group
         ctx.save_for_backward(noise_pj, alpha, solves, w, *factors)
         iters = k_real.to(out.dtype)
         ctx.mark_non_differentiable(iters, Xt)
@@ -569,11 +680,16 @@ class _SKIMLL(torch.autograd.Function):
             surrogate = (-0.5 * torch.dot(alpha, Av[0])
                          + 0.5 * (solves * Av[1:]).sum() / solves.shape[0])
             grads = torch.autograd.grad(surrogate, [nz] + fs)
-        return (None, None, None, None, None, None, g * grads[0], g * alpha,
-                *(g * gf for gf in grads[1:]))
+        flat = all_reduce(torch.cat([gr.reshape(-1) for gr in grads]),
+                          ctx.group)
+        grads = [v.reshape(gr.shape) for gr, v in zip(
+            grads, flat.split([gr.numel() for gr in grads]))]
+        return (None, None, None, None, None, None, None, g * grads[0],
+                g * alpha, *(g * gf for gf in grads[1:]))
 
 
-def ski_mll_from_mvm(mvm, cg_iters, g0, return_iters=False, warm_start=False):
+def ski_mll_from_mvm(mvm, cg_iters, g0, return_iters=False, warm_start=False,
+                     group=None):
     """Returns core(factors, noise_pj, yc, Q, lam_n) = 0.5 yc^T A^-1 yc +
     0.5 logdet A for A = mvm(factors, noise_pj, .), batch-first (the mvm
     takes (b, G) blocks), with split-preconditioned CG solves, the SLQ
@@ -605,17 +721,22 @@ def ski_mll_from_mvm(mvm, cg_iters, g0, return_iters=False, warm_start=False):
     tolerance; X0 takes no gradient). The SLQ log-determinant comes from
     the residual's tridiagonals, which is biased once X0 != 0, so the
     recorded loss is approximate, in ``gpim_tpu`` as here.
+
+    With ``group``, ``g0``, ``yc`` and every block the mvm takes are this
+    rank's share of the cells (a :class:`GridShard` mvm, a sharded
+    ``Q``): the loss and its gradients are the whole problem's on every
+    rank.
     """
     if warm_start:
         def core_ws(factors, noise_pj, yc, Q, lam_n, X0):
             out, iters, X = _SKIMLL.apply(mvm, cg_iters, g0, Q, lam_n, X0,
-                                          noise_pj, yc, *factors)
+                                          group, noise_pj, yc, *factors)
             return out, (X, iters)
         return core_ws
 
     def core(factors, noise_pj, yc, Q, lam_n):
         out, iters, _ = _SKIMLL.apply(mvm, cg_iters, g0, Q, lam_n, None,
-                                      noise_pj, yc, *factors)
+                                      group, noise_pj, yc, *factors)
         return (out, iters) if return_iters else out
     return core
 
@@ -676,33 +797,43 @@ def kernel_self_diag(kernel, p, n, dtype):
 
 
 def mgrid_solve_core(kernel, p, grids, grid_shape, mask_flat, rank,
-                     cg_iters, noise_pj, yc_flat):
+                     cg_iters, noise_pj, yc_flat, shard=None):
     """The predict-time solve of the masked lattice: split-preconditioned
     CG for alpha = A^-1 yc on the factored basis, uncapped mode selection
     (the Nystrom variance uses this eigenspace with no CG behind it), and
     the Nystrom rotation. Returns (alpha masked and grid-shaped, Bmat,
-    sel). The kernel factors are built once, for the basis and every mvm."""
+    sel). The kernel factors are built once, for the basis and every mvm.
+    With a :class:`GridShard` the solve runs on this rank's block of the
+    cells (``mask_flat`` and ``yc_flat`` are blocks) and alpha is gathered
+    whole."""
     factors = grid_kernel_factors(kernel, p, grids)
-    mvm = make_masked_grid_mvm(grid_shape, mask_flat, batch_first=True)
+    mvm = make_masked_grid_mvm(grid_shape, mask_flat, batch_first=True,
+                               shard=shard)
     Qs, lam_n, Un, (lam_top, _, _, sel) = mgrid_split_root(
-        factors, mask_flat, rank, dim_cap=None)
+        factors, mask_flat, rank, dim_cap=None, shard=shard)
     pisqrt, _ = split_apply(Qs, lam_n, noise_pj, vec_axis=1)
     alpha, _, _ = split_pcg(lambda v: mvm(factors, noise_pj, v), pisqrt,
-                            yc_flat[None, :], cg_iters, vec_axis=1)
-    am = (alpha[0] * mask_flat).reshape(tuple(grid_shape))
-    return am, _nystrom_bmat(lam_top, noise_pj, lam_n, Un), sel
+                            yc_flat[None, :], cg_iters, vec_axis=1,
+                            group=None if shard is None else shard.group)
+    am = alpha[0] * mask_flat
+    if shard is not None:
+        am = all_gather(am, shard.group)
+    return (am.reshape(tuple(grid_shape)),
+            _nystrom_bmat(lam_top, noise_pj, lam_n, Un), sel)
 
 
-def make_grid_predictor(kernel, grids, grid_shape, cg_iters, precond_rank):
+def make_grid_predictor(kernel, grids, grid_shape, cg_iters, precond_rank,
+                        shard=None):
     """Returns predict(p, noise_pj, mask_flat, yc_flat, t_axes, kss) ->
     (mean, var) over the Cartesian test grid of per-dim axes ``t_axes``:
     mean = (x)_k C_k (M alpha) with the exact cross-covariances C_k, var
     the Nystrom extension of the eigen-root that preconditions the solve
-    (without the observation noise)."""
+    (without the observation noise). With a :class:`GridShard` the solve is
+    sharded (:func:`mgrid_solve_core`); the test axes are the caller's."""
     def predict(p, noise_pj, mask_flat, yc_flat, t_axes, kss):
         am, Bmat, sel = mgrid_solve_core(
             kernel, p, grids, grid_shape, mask_flat, precond_rank,
-            cg_iters, noise_pj, yc_flat)
+            cg_iters, noise_pj, yc_flat, shard)
         C_list = grid_cross_factors(kernel, p, grids, t_axes)
         mean = modeprod(C_list, am).reshape(-1)
         var = grid_nystrom_var([C @ s for C, s in zip(C_list, sel)], Bmat,

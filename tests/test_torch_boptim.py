@@ -370,5 +370,8 @@ def test_default_device_is_the_card_and_raises_without_one(monkeypatch):
 
 
 def test_mesh_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        make_bo(tmp_path, mesh=True)
+    """mesh= is ported (tests/test_torch_parallel.py runs it); what still
+    raises is a mesh the world cannot hold: an integer other than the
+    world size, 1 without a process group."""
+    with pytest.raises(ValueError, match=r"world size \(1\)"):
+        make_bo(tmp_path, mesh=2)

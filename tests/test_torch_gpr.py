@@ -13,6 +13,7 @@ import gpim_tpu
 from gpim_tpu import utils as jutils
 
 import gpim_tpu_torch
+from gpim_tpu_torch.parallel.mesh import LocalMesh
 from gpim_tpu_torch import utils
 
 KERNELS = ["RBF", "Matern52", "RationalQuadratic"]
@@ -260,11 +261,16 @@ def test_default_placement_and_dtype_on_cpu():
 
 
 @pytest.mark.parametrize("bad", [
-    {"mesh": True}, {"mesh": 4}, {"kernel": "Spectral"}, {"use_gpu": True}])
+    {"mesh": LocalMesh(("task",))}, {"mesh": 4}, {"kernel": "Spectral"},
+    {"use_gpu": True}])
 def test_unported_or_unavailable_options_raise(bad, monkeypatch):
+    """An unknown kernel and a missing card raise; since the parallel
+    layer, mesh= raises only for a mesh without a 'grid' axis or an integer
+    other than the world size (1 without a process group)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     R = get_dummy_data()
-    exc = RuntimeError if "use_gpu" in bad else NotImplementedError
+    exc = {"use_gpu": RuntimeError, "mesh": ValueError}.get(
+        next(iter(bad)), NotImplementedError)
     with pytest.raises(exc):
         gpim_tpu_torch.reconstructor(utils.get_sparse_grid(R), R,
                                      verbose=0, **{"use_gpu": False, **bad})

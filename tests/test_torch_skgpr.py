@@ -338,14 +338,17 @@ def _off_lattice(X):
 
 
 @pytest.mark.parametrize("kwargs, coords, expect", [
-    (dict(mesh=True), None, "mesh= is not ported yet"),
+    (dict(mesh=True, ski_min_points=256), None, "_mgrid_engine"),
     (dict(kernel="RationalQuadratic"), None, "RBF, Matern52, Spectral"),
     (dict(ski_min_points=256, lattice=False), None, "_ski_engine"),
     (dict(ski_min_points=256), _off_lattice, "_ski_engine"),
     (dict(ski_min_points=256), None, "_mgrid_engine"),
 ])
 def test_unported_routes_and_options_raise(kwargs, coords, expect):
-    """mesh= and an unknown kernel raise when the model is built; large
+    """An unknown kernel raises when the model is built; mesh= no longer
+    does (the parallel layer; tests/test_torch_parallel.py runs it on every
+    route), and a large NaN-masked lattice with it still takes the
+    masked-lattice engine; large
     data off a uniform lattice, or any with lattice=False, builds the
     off-lattice SKI engine, and a large NaN-masked lattice the
     masked-lattice engine."""

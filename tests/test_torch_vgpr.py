@@ -188,13 +188,16 @@ def test_default_device_is_the_card_and_raises_without_one(monkeypatch):
         gpim_tpu_torch.vreconstructor(X, Y, verbose=0)
 
 
-@pytest.mark.parametrize("kwargs, match", [
-    (dict(mesh=True), "mesh= is not ported yet"),
-    (dict(kernel="RationalQuadratic"), "RBF, Matern52"),
+@pytest.mark.parametrize("kwargs, exc, match", [
+    (dict(mesh=3), ValueError, r"world size \(1\)"),
+    (dict(kernel="RationalQuadratic"), NotImplementedError, "RBF, Matern52"),
 ])
-def test_unported_options_raise(kwargs, match):
+def test_unported_options_raise(kwargs, exc, match):
+    """An unknown kernel raises; since the parallel layer, mesh= raises
+    only for an integer other than the world size (1 without a process
+    group)."""
     X, Y = get_vector_data()
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         gpim_tpu_torch.vreconstructor(X, Y, verbose=0, use_gpu=False,
                                       **kwargs)
 
