@@ -26,10 +26,17 @@ its final line):
              only the two-rank world of phase parallel gives it (a VFE
              rank's Kmn 1027 x 15424 and predict tile 2048 x 1027, d = 3;
              a masked-lattice rank's factor block 32 x 64, d = 1), with
-             the tolerances below;
+             the tolerances below; K4 (the off-lattice interpolation
+             adjoint W^T v, a CSR sum by cell in a fixed order) at the two
+             off-lattice rows' own shapes (ski_offlattice64x64x32: 39,424
+             padded points on 36^3 cells; ski_offlattice128x128x64:
+             314,624 on 70^3) with the block widths their paths give it (b
+             = 9 in training, 1 in predict, 100 for the rank-0 Lanczos
+             basis), normalized by the largest sum of |w v| over a cell;
              float32 device time per call of each kernel, its plain version
-             and (K1) torch.cdist, beside the kernel's bound: K2 and K3 from
-             a warm loop of launches (_time_ms), K1 from a CUDA graph of
+             and (K1) torch.cdist, (K4) the index_add_ it replaced, beside
+             the kernel's bound: K2, K3 and K4 from a warm loop of launches
+             (_time_ms; K4 also from a CUDA graph), K1 from a CUDA graph of
              calls (_time_graph_ms);
              the batched kernels at the multi-output eels64 shapes (T = 64
              tasks, n = 2048: K2, K3, and K1 on one 64 x 2048 x 2048
@@ -125,19 +132,26 @@ its final line):
              SKI route (lattice=False: grid interpolation, RBF, learning
              rate 0.1, float32): ski_offlattice64x64x32 (the cube of
              ski_masked64x64x32, 39,328 points on a 36^3 inducing grid,
-             30 iterations) cold, then warm twice (the largest difference
-             between the two warm runs printed: W^T's index_add_ sums in
-             no fixed order on the card), with rmse_vs_truth < 0.75 data
-             sd beside the masked-lattice route's on the same cube, and in
-             float64 against float32 (OFFLATTICE_CROSS_TOL);
+             30 iterations) cold, then warm twice, the two warm runs
+             bit-equal in mean, sd and series (K4 sums in a fixed order),
+             with rmse_vs_truth < 0.75 data sd beside the masked-lattice
+             route's on the same cube, and in float64 against float32
+             (OFFLATTICE_CROSS_TOL); the same cube at precond_rank=0 on
+             both SKI routes (off-lattice, and the masked lattice, whose
+             rank-0 predict is the port's own: CG to its tolerance and
+             the LOVE variance) at the default cg_iterations, each with
+             the same rmse gate and its realized predict iterations;
              ski_offlattice128x128x64 (the 1M analytic cube of
              mgrid_masked128x128x64, 314,624 points on a 70^3 grid, 10
              iterations) once, finite, its rmse and peak memory recorded,
              the operator and P^-1/2 at the CG block width timed beside the
              operator's bound; each run's realized CG iterations, segments
              and K1 launches against what its code implies (d (steps +
-             segments + 1)); small problems on random 2D and 3D
-             coordinates (9216 rows) card against CPU in float64, on both
+             segments + 1)) and K4 launches against the CG iterations
+             each solve ran (_ski_k4_launches: one an iteration, two a
+             backward, one for the mean, and at rank 0 one a Lanczos step
+             and one for its cross rows); small problems on random 2D and
+             3D coordinates (9216 rows) card against CPU in float64, on both
              variance paths (Nystrom; Lanczos at precond_rank=0) and with
              max_root.
 12. parallel - the parallel layer (gpim_tpu_torch.parallel, mesh=): (a) a
@@ -146,9 +160,9 @@ its final line):
              already runs - the flagship, the BEPFM VFE, eels6 correlated,
              ckpfm4d, ski_masked64x64x32, ski_offlattice64x64x32 and bo25
              EI - against its unsharded twin in the same process: results
-             equal to float32 rtol 1e-6 (series included; the off-lattice
-             row within PARALLEL_SPREAD times its own run-to-run spread),
-             the same K1/K2/K3 launches, NCCL collectives issued; (b) two
+             equal to float32 rtol 1e-6 (series included, the off-lattice
+             row too since K4 sums in a fixed order), the same K1-K4
+             launches, NCCL collectives issued; (b) two
              ranks sharing the card over gloo (python -m
              gpim_tpu_torch.parallel.mp_worker spec), at full width, each
              row cold then warm: eels64 task-sharded (T = 64, 32 channels
@@ -228,7 +242,12 @@ TOL = {
     "sqdist": {"float32": 1e-6, "float64": 1e-14},
     "masked_system": {"float32": 4e-6, "float64": 1e-13},
     "rbf_bwd_reductions": {"float32": 1e-4, "float64": 1e-12},
+    # normalized by the largest sum of |w v| over a cell: a sum of a few
+    # f32 products, each product and sum rounded once
+    "interp_adjoint": {"float32": 1e-6, "float64": 1e-12},
 }
+# the kernels, in the order of the kernels line
+KERNELS = ("sqdist", "masked_system", "rbf_bwd_reductions", "interp_adjoint")
 # f32 flagship vs f64 flagship at the same jitter. Measured on an H100:
 # mean 7.9e-4, sd 4.9e-4, noise 2.1e-8 apart, so those limits are tightened
 # from tests/test_gpr.py:174-178 (5e-3, 5e-3, 1e-3). The final lengthscale
@@ -339,9 +358,8 @@ OFFLATTICE_ROWS = {"ski_offlattice64x64x32": ((64, 64, 32), 30),
 # ski_offlattice64x64x32 in float32 against float64 at the float32 jitter.
 # Measured on an H100 (the first run of this phase, with MGRID_CROSS_TOL's
 # limits): mean 4.5e-5, sd 1.6e-5, lengthscale 7.8e-5 and noise 8.0e-7
-# apart (relative for the last two), while two float32 runs differ by up
-# to 3.9e-5 in the mean (index_add_'s atomics). Each limit is about ten
-# times its measured gap.
+# apart (relative for the last two). Each limit is about ten times its
+# measured gap.
 OFFLATTICE_CROSS_TOL = {"mean_atol": 5e-4, "sd_atol": 2e-4,
                         "ls_rtol": 8e-4, "noise_rtol": 8e-6}
 
@@ -496,8 +514,9 @@ def phase_build():
     name = spill = ""
     for line in res.log.splitlines():
         if "Function properties for" in line:
-            name = re.sub(r"^.*?\d+(?=(sqdist|masked_system|rbf_bwd)_kernel)",
-                          "", line.split(" for ", 1)[1].strip())
+            name = re.sub(r"^.*?\d+(?=(sqdist|masked_system|rbf_bwd|"
+                          r"interp_adjoint)_kernel)", "",
+                          line.split(" for ", 1)[1].strip())
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line:
@@ -724,6 +743,83 @@ def _ski_k1_inputs(dtype):
                             [:, None] / MGRID_LS, dtype=dtype, device="cuda")
         i = torch.arange(g + 2, device="cuda")
         out.append(("factor %d" % (g + 2), a, a, (i, i)))
+    return out
+
+
+def _k4_layouts(dtype):
+    """K4's operands on the two off-lattice rows: each row's observed
+    points, padded to skreconstructor's 128-row bucket (the padded rows
+    weigh 0), interpolated onto choose_grid's inducing grid and sorted by
+    an SKIEngine on the card, which builds W's CSR layout; yields (row,
+    engine)."""
+    from gpim_tpu_torch import utils
+    from gpim_tpu_torch.gpreg import engine, ski_model
+    from gpim_tpu_torch.ops import ski
+    for row in OFFLATTICE_ROWS:
+        R = (ski_masked_data()[0] if row == "ski_offlattice64x64x32"
+             else mgrid_data(OFFLATTICE_ROWS[row][0])[0])
+        X_np, _ = utils.prepare_training_data(
+            utils.get_sparse_grid(R), R,
+            precision="single" if dtype.itemsize == 4 else "double")
+        Xp, n = engine.pad_rows(X_np, 128)
+        mask = np.zeros(len(Xp), Xp.dtype)
+        mask[:n] = 1.0
+        yield row, ski_model.SKIEngine("RBF", Xp, mask, ski.choose_grid(X_np),
+                                       dtype, "cuda", precond_rank=0)
+
+
+def _interp_adjoint_cases(dname, dtype, timed):
+    """K4 against its plain version (in float64) at each off-lattice row's
+    shape and at the block widths its paths give it (9: the training CG
+    block; 1: the predict solve and mean; 100: the rank-0 Lanczos basis);
+    two launches bit-equal; at b = 9 in float32 timed beside its bound,
+    its plain version and the index_add_ it replaced. Returns the records
+    by row."""
+    import torch
+    from gpim_tpu_torch.ops import gram_kernels as gk
+    out = {}
+    for row, eng in _k4_layouts(dtype):
+        lay = eng._layout
+        n, S = eng._idx.shape
+        d = S.bit_length() - 1
+        lay64 = lay._replace(wgt=lay.wgt.double())
+        abs64 = lay64._replace(wgt=lay64.wgt.abs())
+        recs = {}
+        for b in (9, 1, 100):
+            v = torch.randn(b, n, dtype=dtype, device="cuda")
+            got = gk.interp_adjoint(lay, v)
+            again = gk.interp_adjoint(lay, v)
+            ref = gk.interp_adjoint_plain(lay64, v.double())
+            scale = gk.interp_adjoint_plain(abs64, v.double().abs()).max()
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError("interp_adjoint: two launches differ")
+            err, nerr = _norm_err(got, ref, scale)
+            log("[kernels]   interp_adjoint %s n = %d, G = %d, b = %d"
+                % (row, n, lay.G, b))
+            _check("interp_adjoint", dname, err, nerr)
+            rec = {"err": err, "shape": [n, d, lay.G, b]}
+            if timed and b == 9:
+                flat = eng._idx.reshape(-1)
+                wgt = eng._wgt
+                rec["ms"] = _time_ms(lambda: gk.interp_adjoint(lay, v))
+                rec["graph_ms"] = _time_graph_ms(
+                    lambda: gk.interp_adjoint(lay, v))
+                rec["plain_ms"] = _time_ms(
+                    lambda: gk.interp_adjoint_plain(lay, v))
+                # the index_add_ this kernel replaced (ops/ski.py before
+                # it), on the same inputs
+                rec["library_ms"] = _time_ms(
+                    lambda: v.new_zeros((lay.G, b)).index_add_(
+                        0, flat, (wgt[:, :, None] * v.mT[:, None, :])
+                        .reshape(n * S, b)))
+                rec["bound"] = bound("interp_adjoint", n, d, m=lay.G,
+                                     dtype_name=dname, batch=b)
+            recs["b%d" % b] = rec
+            del v, got, again, ref
+        out[row] = recs
+        del eng, lay, lay64, abs64
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1090,6 +1186,11 @@ def phase_kernels(R, X, X_full, vfe, eels64, ckpfm):
                  fields[..., fields.shape[-1] // 2:])
         for name, r in _batched_cases(share, dname, timed).items():
             rec[name]["batched_shapes"]["eels64 rank share"] = r
+        # K4 at the off-lattice rows' shapes; its top record is the 1M
+        # row's training block
+        k4 = _interp_adjoint_cases(dname, dtype, timed)
+        rec["interp_adjoint"] = dict(k4["ski_offlattice128x128x64"]["b9"],
+                                     ski_shapes=k4)
         report[dname] = rec
     def show(name, r, reps=TIMING_REPS):
         log("[kernels] %-19s float32 kernel %.4f ms%s, plain %.4f ms, "
@@ -1102,6 +1203,10 @@ def phase_kernels(R, X, X_full, vfe, eels64, ckpfm):
                "graph" if "loop_ms" in r else "warm loop", reps))
     for name, r in report["float32"].items():
         show(name, r)
+    for row, r in report["float32"]["interp_adjoint"]["ski_shapes"].items():
+        show("interp_adjoint " + row, r["b9"])
+        log("[kernels] interp_adjoint %s b = 9: %.4f ms by a CUDA graph of "
+            "%d launches" % (row, r["b9"]["graph_ms"], TIMING_REPS))
     for label, r in report["float32"]["sqdist"]["vfe_shapes"].items():
         show("sqdist VFE " + label, r)
     for label, r in report["float32"]["sqdist"]["kron_shapes"].items():
@@ -1113,21 +1218,29 @@ def phase_kernels(R, X, X_full, vfe, eels64, ckpfm):
     for label, r in report["float32"]["sqdist"]["parallel_shapes"].items():
         show("sqdist two-rank " + label, r)
     for name, r in report["float32"].items():
-        for label, b in r["batched_shapes"].items():
+        for label, b in r.get("batched_shapes", {}).items():
             show(name + " " + label, b, MULTI_TIMING_REPS)
     return report["float32"]
 
 
 def _reset_launches():
     from gpim_tpu_torch.ops import gram_kernels as gk
-    for fn in (gk.sqdist, gk.masked_system, gk.rbf_bwd_reductions):
-        fn.launches = 0
+    for name in KERNELS:
+        getattr(gk, name).launches = 0
 
 
 def _read_launches():
     from gpim_tpu_torch.ops import gram_kernels as gk
-    return {fn.__name__: fn.launches
-            for fn in (gk.sqdist, gk.masked_system, gk.rbf_bwd_reductions)}
+    return {name: getattr(gk, name).launches for name in KERNELS}
+
+
+def _counts(sqdist=0, masked_system=0, rbf_bwd_reductions=0,
+            interp_adjoint=0):
+    """Launch counts of every kernel, by name, as _read_launches gives
+    them."""
+    return {"sqdist": sqdist, "masked_system": masked_system,
+            "rbf_bwd_reductions": rbf_bwd_reductions,
+            "interp_adjoint": interp_adjoint}
 
 
 def _run_flagship(R, X, X_full, precision, label, **kwargs):
@@ -1169,7 +1282,7 @@ def phase_flagship(R, X, X_full):
         raise AssertionError("flagship prediction has the wrong shape")
     if not rmse < 0.1:
         raise AssertionError("flagship rmse_obs %.4f >= 0.1" % rmse)
-    if not all(c > 0 for c in launches.values()):
+    if not all(launches[k] > 0 for k in KERNELS[:3]):
         raise AssertionError("a kernel of the main path was never launched: "
                              "%s" % launches)
     tensors = (list(model.u.values()) + list(model._bounds().values())
@@ -1465,10 +1578,9 @@ def _bo_expected(bo):
     adam = m.iterations + steps * bo.refit_iterations
     n_chunks = int(bo._chunks_d.shape[0])
     if m.do_sparse:
-        return {"sqdist": 2 * adam + steps * (2 + n_chunks),
-                "masked_system": 0, "rbf_bwd_reductions": 0}
-    return {"sqdist": steps * (1 + n_chunks), "masked_system": adam,
-            "rbf_bwd_reductions": adam}
+        return _counts(sqdist=2 * adam + steps * (2 + n_chunks))
+    return _counts(sqdist=steps * (1 + n_chunks), masked_system=adam,
+                   rbf_bwd_reductions=adam)
 
 
 def _run_bo(label, seed, target, **kwargs):
@@ -1693,11 +1805,11 @@ def _multi_expected(model, n_test):
     n_chunks = -(-n_test // min(MULTI_CHUNK, -(-n_test // 128) * 128))
     predict = 1 + n_chunks
     if not model.independent:
-        return {"sqdist": steps + predict, "masked_system": 0,
-                "rbf_bwd_reductions": 0}
+        return _counts(sqdist=steps + predict)
     rbf = model.kernel_type == "RBF"
-    return {"sqdist": predict + (0 if rbf else steps),
-            "masked_system": steps, "rbf_bwd_reductions": steps if rbf else 0}
+    return _counts(sqdist=predict + (0 if rbf else steps),
+                   masked_system=steps,
+                   rbf_bwd_reductions=steps if rbf else 0)
 
 
 def _run_multi(label, data, **kwargs):
@@ -1905,27 +2017,52 @@ def phase_multi_profile(eels6, eels64):
 # structured-kernel GP (skreconstructor)
 # ---------------------------------------------------------------------------
 
+def _cg_trips(k, cap):
+    """The iterations batched_pcg runs, one mvm each, for ``k`` realized
+    ones under ``cap``: it reads whether every column has converged only
+    every ski.CG_EXIT_CHECK_EVERY iterations, so it runs on to the next
+    multiple of that (at least one multiple)."""
+    from gpim_tpu_torch.ops import ski
+    every = ski.CG_EXIT_CHECK_EVERY
+    return min(int(cap), max(every, every * -(-int(k) // every)))
+
+
+def _ski_k4_launches(eng):
+    """K4 launches of an off-lattice run (every W^T is one): a training
+    step, one a CG iteration the loop runs and two in the surrogate
+    backward (the operator's W^T, and the gather's gradient, which is W^T
+    too); in predict one a solve iteration (capped at cg_iters, at
+    precond_rank 0 at ski.PREDICT_CG_ITERS) and one for the mean, and at
+    rank 0 one a Lanczos step and one for the test cross rows."""
+    from gpim_tpu_torch.ops import ski
+    train = sum(_cg_trips(k, eng.cg_iters) + 2 for k in eng.last_cg_iters)
+    if eng.precond_rank > 0:
+        return train + _cg_trips(eng.last_predict_cg_iters, eng.cg_iters) + 1
+    return (train + _cg_trips(eng.last_predict_cg_iters,
+                              ski.PREDICT_CG_ITERS) + 1 + eng.rank + 1)
+
+
 def _sk_expected(model, n_test):
     """Kernel launches an skreconstructor run implies. Kronecker: K1 once a
     grid axis an Adam step (its factor), and in predict once a factor and
     once a factor a chunk (the cross rows). Masked lattice (d axes, S
     training segments): K1 once an axis each Adam step (the factors, built
     once for all CG iterations and the surrogate backward) and each
-    segment (the preconditioner's rebuild), and in predict once an axis
-    for the solve's factors and once an axis for the cross factors of a
-    Cartesian test grid (or once an axis a chunk of scattered points):
-    d (steps + S + 2) for a grid. Off-lattice (d axes, S segments): K1
-    once an axis each Adam step and each segment, and once an axis in
-    predict (the factors serve the solve, the eigen-root and the mean):
-    d (steps + S + 1); at precond_rank 0 no segment builds a
-    preconditioner, d (steps + 1). Dense (the multi-output engine at one
-    task): K2 each Adam step, K3 too for RBF, K1 each step for Matern52
-    (its backward's distances), and in predict K1 for the Gram and once a
-    chunk. Spectral: none."""
+    segment (the preconditioner's rebuild; none at precond_rank 0), and in
+    predict once an axis for the solve's factors and once an axis for the
+    cross factors of a Cartesian test grid (or once an axis a chunk of
+    scattered points): d (steps + S + 2) for a grid. Off-lattice (d axes,
+    S segments): K1 once an axis each Adam step and each segment, and once
+    an axis in predict (the factors serve the solve, the eigen-root and
+    the mean): d (steps + S + 1); at precond_rank 0 no segment builds a
+    preconditioner, d (steps + 1); K4 as _ski_k4_launches counts. Dense
+    (the multi-output engine at one task): K2 each Adam step, K3 too for
+    RBF, K1 each step for Matern52 (its backward's distances), and in
+    predict K1 for the Gram and once a chunk. Spectral: none."""
     steps = int(model.iterations)
     n_chunks = -(-n_test // min(SK_CHUNK, -(-n_test // 128) * 128))
     if model.kernel_type == "Spectral":
-        return {"sqdist": 0, "masked_system": 0, "rbf_bwd_reductions": 0}
+        return _counts()
     if model._mgrid_engine is not None:
         from gpim_tpu_torch.gpreg import mgrid_model
         eng = model._mgrid_engine
@@ -1935,21 +2072,21 @@ def _sk_expected(model, n_test):
                 model.Xtest, model.fulldims) is not None
         predict = 2 * d if grid else d * (1 + -(-n_test // min(
             SK_CHUNK, max(128, n_test))))
-        return {"sqdist": d * (steps + len(eng.last_segments)) + predict,
-                "masked_system": 0, "rbf_bwd_reductions": 0}
+        rebuilds = len(eng.last_segments) if eng.precond_rank > 0 else 0
+        return _counts(sqdist=d * (steps + rebuilds) + predict)
     if model._ski_engine is not None:
         eng = model._ski_engine
         d = len(eng.grid_shape)
         rebuilds = len(eng.last_segments) if eng.precond_rank > 0 else 0
-        return {"sqdist": d * (steps + rebuilds + 1),
-                "masked_system": 0, "rbf_bwd_reductions": 0}
+        return _counts(sqdist=d * (steps + rebuilds + 1),
+                       interp_adjoint=_ski_k4_launches(eng))
     if model._kron_engine is not None:
         d = len(model._kron_engine.dims)
-        return {"sqdist": d * (steps + 1 + n_chunks), "masked_system": 0,
-                "rbf_bwd_reductions": 0}
+        return _counts(sqdist=d * (steps + 1 + n_chunks))
     rbf = model.kernel_type == "RBF"
-    return {"sqdist": 1 + n_chunks + (0 if rbf else steps),
-            "masked_system": steps, "rbf_bwd_reductions": steps if rbf else 0}
+    return _counts(sqdist=1 + n_chunks + (0 if rbf else steps),
+                   masked_system=steps,
+                   rbf_bwd_reductions=steps if rbf else 0)
 
 
 def _run_sk(label, R, X, Xt, **kwargs):
@@ -2371,8 +2508,7 @@ def _warm_start_rows(label, R, iters, **kwargs):
             "a step %s (%d in all), segments %s, launches %s" % (
                 label, tag, wall, recs[tag]["cg_iters"],
                 sum(recs[tag]["cg_iters"]), recs[tag]["segments"], launches))
-        if launches != {"sqdist": expected, "masked_system": 0,
-                        "rbf_bwd_reductions": 0}:
+        if launches != _counts(sqdist=expected):
             raise AssertionError("%s %s start: launches %s, the code implies "
                                  "K1 %d" % (label, tag, launches, expected))
         if not np.isfinite(traj["loss"].cpu().numpy()).all():
@@ -2682,12 +2818,14 @@ def _small_offlattice_checks():
 
 
 def phase_ski(mgrid64_rmse):
-    """The two off-lattice rows, ski_offlattice64x64x32 twice warm and in
-    float64 against float32, and small problems card against CPU in
-    float64. Returns (the warm runs' launches by path, the 64x64x32 row's
-    warm model)."""
+    """The two off-lattice rows, ski_offlattice64x64x32 twice warm (the two
+    bit-equal) and in float64 against float32, the same cube at
+    precond_rank=0 on both SKI routes, and small problems card against CPU
+    in float64. Returns (the warm runs' launches by path, the 64x64x32
+    row's warm model)."""
     import torch
     from gpim_tpu_torch import dtypes
+    from gpim_tpu_torch.ops import ski
     paths, recs = {}, {}
 
     row = "ski_offlattice64x64x32"
@@ -2707,17 +2845,24 @@ def phase_ski(mgrid64_rmse):
     if not rec["rmse_vs_truth"] < 0.75 * rec["data_sd"]:
         raise AssertionError("%s rmse_vs_truth %.4f >= 0.75 data sd"
                              % (row, rec["rmse_vs_truth"]))
-    _, k32b, s32b, h32b, rec_b = _run_offlattice(row + " f32 warm again",
-                                                 R, truth, iters)
+    m32b, k32b, s32b, h32b, rec_b = _run_offlattice(
+        row + " f32 warm again", R, truth, iters)
     rerun = {"mean": float(np.abs(k32 - k32b).max()),
              "sd": float(np.abs(s32 - s32b).max()),
              "lengthscale": float(np.abs(h32["lengthscale"]
                                          - h32b["lengthscale"]).max()),
              "noise": float(np.abs(h32["noise"] - h32b["noise"]).max()),
+             "loss": float(np.abs(m32.losses - m32b.losses).max()),
              "same_cg_iters": rec_b["cg_iters"] == rec["cg_iters"]}
     rec["run_to_run"] = rerun
-    log("[ski] %s two warm runs, largest differences (index_add_'s "
-        "atomics): %s" % (row, json.dumps(rerun)))
+    log("[ski] %s two warm runs, largest differences (K4 sums in a fixed "
+        "order, so all must be 0): %s" % (row, json.dumps(rerun)))
+    if not (rerun["same_cg_iters"] and all(
+            rerun[k] == 0.0 for k in ("mean", "sd", "lengthscale", "noise",
+                                      "loss"))):
+        raise AssertionError("%s: two float32 runs are not bit-equal: %s"
+                             % (row, json.dumps(rerun)))
+    del m32b
     _, k64, s64, h64, recs[row + "_f64"] = _run_offlattice(
         row + " f64", R, truth, iters, precision="double",
         jitter=dtypes.default_jitter(torch.float32))
@@ -2736,6 +2881,27 @@ def phase_ski(mgrid64_rmse):
         if not diffs[k] <= lim:
             raise AssertionError("%s f32 vs f64 %s %.3e > %.0e"
                                  % (row, k, diffs[k], lim))
+
+    # the same cube without a preconditioner, on both SKI routes, at the
+    # default cg_iterations: the predict solve runs to CG's tolerance under
+    # ski.PREDICT_CG_ITERS, the variance is LOVE's
+    for label, run in (("ski_offlattice64x64x32 rank 0", _run_offlattice),
+                       ("ski_masked64x64x32 rank 0", _run_mgrid)):
+        model, _, _, _, rec = run(label, R, truth, iters, precond_rank=0)
+        eng = model._ski_engine or model._mgrid_engine
+        rec["predict_cg_iters"] = eng.last_predict_cg_iters
+        rec["lanczos_rank"] = eng.rank
+        recs[label], paths[label] = rec, rec["launches"]
+        log("[ski] %-27s rmse_vs_truth %.5f (gate < %.5f), realized "
+            "predict CG iterations %d (cap %d), Lanczos rank %d, training "
+            "CG iterations %d in all" % (
+                label, rec["rmse_vs_truth"], 0.75 * rec["data_sd"],
+                rec["predict_cg_iters"], ski.PREDICT_CG_ITERS,
+                rec["lanczos_rank"], sum(rec["cg_iters"])))
+        if not rec["rmse_vs_truth"] < 0.75 * rec["data_sd"]:
+            raise AssertionError("%s rmse_vs_truth %.4f >= 0.75 data sd"
+                                 % (label, rec["rmse_vs_truth"]))
+        del model
 
     row = "ski_offlattice128x128x64"
     shape, iters = OFFLATTICE_ROWS[row]
@@ -2761,7 +2927,7 @@ def phase_ski_profile(model):
     model.iterations = MGRID_PROFILE_STEPS
     _report_profile("ski_offlattice64x64x32", "warm float32 training steps",
                     MGRID_PROFILE_STEPS, _profiled(model.train), host_ops=10,
-                    host_keys=("aten::linalg_eigh", "aten::index_add_"))
+                    host_keys=("aten::linalg_eigh",))
 
 
 # ---------------------------------------------------------------------------
@@ -2776,13 +2942,12 @@ def _gpr_expected(model, n_test):
     steps = int(model.iterations)
     n_chunks = -(-n_test // 4096)
     if model.do_sparse:
-        return {"sqdist": 2 * steps + 2 + n_chunks, "masked_system": 0,
-                "rbf_bwd_reductions": 0}
+        return _counts(sqdist=2 * steps + 2 + n_chunks)
     if model.kernel_type != "RBF":
         raise ValueError("no launch count for an exact %s run"
                          % model.kernel_type)
-    return {"sqdist": 1 + n_chunks, "masked_system": steps,
-            "rbf_bwd_reductions": steps}
+    return _counts(sqdist=1 + n_chunks, masked_system=steps,
+                   rbf_bwd_reductions=steps)
 
 
 def _example_inputs(name, xl=False):
@@ -3005,7 +3170,8 @@ def phase_trace(R, X, X_full):
     found = {name: sum(k in n for n in kernels) for k, name in (
         ("sqdist_kernel", "sqdist"),
         ("masked_system_kernel", "masked_system"),
-        ("rbf_bwd_kernel", "rbf_bwd_reductions"))}
+        ("rbf_bwd_kernel", "rbf_bwd_reductions"),
+        ("interp_adjoint_kernel", "interp_adjoint"))}
     log("[trace] flagship, %d steps and predict: %.3f s untraced, %.3f s in "
         "utils.profiling.trace; the trace (%.1f MB) holds %d CUDA kernel "
         "events, of them K1/K2/K3 %s (the run launched %s)" % (
@@ -3023,11 +3189,9 @@ def phase_trace(R, X, X_full):
 
 # A sharded run on a one-rank world runs the same operations as its
 # unsharded twin (every collective over one rank is a copy), so float32
-# results are held to 1e-6; the off-lattice route's index_add_ sums in no
-# fixed order, so it is held to PARALLEL_SPREAD times the largest
-# difference between two of its unsharded runs instead.
+# results are held to 1e-6, every row alike (the off-lattice row's W^T is
+# K4, which sums in a fixed order).
 PARALLEL_RTOL = 1e-6
-PARALLEL_SPREAD = 4.0
 # Two ranks on one card: eels64's channels split 32 + 32 over 'task' (each
 # channel's arithmetic is the same launch shape per task, so its results
 # are expected bit for bit; the loss is a sum in another order), held to
@@ -3067,23 +3231,17 @@ def _max_gaps(a, b):
     return out
 
 
-def _parallel_twin(label, run, spread=False):
+def _parallel_twin(label, run):
     """Run ``run(mesh) -> result dict`` unsharded and with mesh=True on the
-    one-rank world; the results must agree (PARALLEL_RTOL, or within the
-    unsharded run-to-run spread), the launches must be equal and the
-    sharded run must have issued NCCL collectives. Returns the sharded
-    run's launches and record."""
+    one-rank world; the results must agree to PARALLEL_RTOL, the launches
+    must be equal and the sharded run must have issued NCCL collectives.
+    Returns the sharded run's launches and record."""
     from gpim_tpu_torch.parallel import distributed
     _reset_launches()
     t0 = time.perf_counter()
     twin = run(None)
     twin_s = time.perf_counter() - t0
     l_twin = _read_launches()
-    limit = None
-    if spread:
-        again = run(None)
-        limit = {k: PARALLEL_SPREAD * g[0]
-                 for k, g in _max_gaps(again, twin).items()}
     distributed.reset_collective_counts()
     _reset_launches()
     t0 = time.perf_counter()
@@ -3100,9 +3258,7 @@ def _parallel_twin(label, run, spread=False):
                 k: "%.2e, %.2e" % g for k, g in gaps.items()},
             json.dumps(coll)))
     for k, (d, rel) in gaps.items():
-        ok = (d <= limit[k] or rel <= PARALLEL_RTOL) if limit \
-            else rel <= PARALLEL_RTOL or d == 0.0
-        if not ok:
+        if not (rel <= PARALLEL_RTOL or d == 0.0):
             raise AssertionError("%s: mesh=True %s is %.3e (rel %.3e) from "
                                  "its unsharded twin" % (label, k, d, rel))
     if launches != l_twin:
@@ -3187,7 +3343,7 @@ def _parallel_one_rank(R, X, X_full, vfe, eels6, ckpfm):
             "ski_offlattice64x64x32": offlattice64, "bo25_ei_explore": bo25}
     for label in PARALLEL_ROWS:
         paths["parallel_" + label], recs[label] = _parallel_twin(
-            label, runs[label], label == "ski_offlattice64x64x32")
+            label, runs[label])
     return paths, recs
 
 
@@ -3414,9 +3570,16 @@ def kernel_records(kreport, paths):
     launch counts, and ``launches`` is their sum."""
     replaces = {"sqdist": "gpim_tpu/ops/pallas_gram.py:77",
                 "masked_system": "gpim_tpu/ops/pallas_gram.py:186",
-                "rbf_bwd_reductions": "gpim_tpu/ops/pallas_gram.py:283"}
+                "rbf_bwd_reductions": "gpim_tpu/ops/pallas_gram.py:283",
+                # no Pallas counterpart: the port's index_add_ of W^T,
+                # whose gpim_tpu counterpart is ski_mvm's sorted XLA scatter
+                "interp_adjoint": "gpim_tpu/ops/ski.py:275"}
+    library = {"sqdist": "torch.cdist, the nearest call: it returns the "
+                         "root of this kernel's output",
+               "interp_adjoint": "index_add_ of the weighted corner rows, "
+                                 "the call this kernel replaced"}
     out = []
-    for name in ("sqdist", "masked_system", "rbf_bwd_reductions"):
+    for name in KERNELS:
         r = kreport[name]
         bound_ms, bound_by = r["bound"]
         out.append({
@@ -3428,10 +3591,22 @@ def kernel_records(kreport, paths):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_share": bound_ms / r["ms"],
             "library_ms": r["library_ms"],
-            "library": ("torch.cdist, the nearest call: it returns the root "
-                        "of this kernel's output" if name == "sqdist"
-                        else None),
+            "library": library.get(name),
         })
+        if name == "interp_adjoint":
+            out[-1]["graph_ms"] = r["graph_ms"]
+            out[-1]["ski_shapes"] = {
+                row: {"b%s" % k[1:]: {
+                    "shape": v["shape"], "max_abs_err": v["err"],
+                    **({} if "ms" not in v else {
+                        "ms": v["ms"], "graph_ms": v["graph_ms"],
+                        "plain_ms": v["plain_ms"],
+                        "library_ms": v["library_ms"],
+                        "bound_ms": v["bound"][0], "bound_by": v["bound"][1],
+                        "bound_share": v["bound"][0] / v["ms"]})}
+                    for k, v in recs.items()}
+                for row, recs in r["ski_shapes"].items()}
+            continue
         out[-1]["batched_shapes"] = {
             label: {"shape": v["shape"], "max_abs_err": v["err"],
                     "ms": v["ms"], "plain_ms": v["plain_ms"],

@@ -5,8 +5,10 @@
 // K1 sqdist          (n, d) x (m, d) -> (n, m) squared distances
 // K2 masked_system   Kt and the masked training system A, in one pass
 // K3 rbf_bwd         the reductions of the closed-form RBF MLL backward
+// K4 interp_adjoint  W^T v of the off-lattice SKI operator, a CSR segmented
+//                    sum in a fixed order (no Pallas counterpart)
 //
-// Each kernel takes a leading task axis (T independent problems in one
+// K1-K3 take a leading task axis (T independent problems in one
 // launch, the batch that gpim_tpu's vmap over output channels gives its
 // Pallas kernels) on its own grid axis: blockIdx.z for K1 and K2,
 // blockIdx.y for K3. Per-task operands advance by the task's stride; the
@@ -14,9 +16,10 @@
 // unbatched call is T = 1. Offsets are int64: at T = 64 and n = 2048 one
 // (T, n, n) tensor holds 2.7e8 elements.
 //
-// Every kernel is an elementwise-plus-reduction pass with d <= 8 features,
-// so none has a tensor-core product to win: K1 and K2 are bound by the bytes
-// they write, K3 by the bytes it reads. The designs keep those accesses
+// Every kernel is an elementwise-plus-reduction pass with d <= 8 features
+// (K4 a sum of a few weighted rows a cell), so none has a tensor-core
+// product to win: K1 and K2 are bound by the bytes they write, K3 and K4 by
+// the bytes they read. The designs keep those accesses
 // coalesced and touch every output or input element exactly once.
 //
 // Plain C interface (loaded with ctypes), one entry point per kernel and
@@ -717,6 +720,79 @@ int launch_rbf_bwd(const T* Ainv, const T* Kt, const T* alpha, const T* mask,
                                 counter, sums, n, d, tasks, s);
 }
 
+
+// ---------------------------------------------------------------------------
+// K4: the interpolation adjoint W^T v (no Pallas counterpart; it replaces
+// the index_add_ of the port's off-lattice operator, whose gpim_tpu
+// counterpart is ski_mvm's sorted XLA scatter, gpim_tpu/ops/ski.py:275).
+// index_add_'s float atomics add in no fixed order on the card, so two runs
+// of one training differed. The (point, corner) entries come sorted by cell
+// once a data set (CSR: rowptr, and each entry's point src and weight w),
+// and one thread computes one output (cell g, column c) as
+//
+//   out[g, c] = sum_{k = rowptr[g]}^{rowptr[g + 1] - 1} w[k] v[c, src[k]]
+//
+// in increasing k: no atomics and one answer in every run. Each product and
+// each sum is rounded on its own (__fmul_rn/__fadd_rn, no FMA), as the
+// plain version's index_add_ rounds them. Bound by bytes (the block v, the
+// entries, the row pointers, the (G, b) output: ~45 MB at the 1M cube, b =
+// 9). Threads are (cell, column) pairs with the column fastest: the b
+// threads of a cell read each entry's w and src together (one broadcast),
+// a warp stores contiguous output, and neighbouring cells read neighbouring
+// points, which come sorted by their lower corner. An empty cell writes 0.
+// The same kernel is the gradient of the operator's gather W in the SKI
+// loss's backward.
+// ---------------------------------------------------------------------------
+constexpr int kAdjThreads = 256;
+
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kAdjThreads)
+    interp_adjoint_kernel(const int* __restrict__ rowptr,
+                          const int* __restrict__ src,
+                          const T* __restrict__ w, const T* __restrict__ v,
+                          T* __restrict__ out, int64_t total, int64_t n,
+                          int b) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kAdjThreads +
+                    threadIdx.x;
+  if (t >= total) return;
+  const int64_t g = t / b;
+  const T* __restrict__ vc = v + (t - g * b) * n;
+  const int end = rowptr[g + 1];
+  T acc = T(0);
+  for (int k = rowptr[g]; k < end; ++k) {
+    acc = add_rn(acc, mul_rn(w[k], vc[src[k]]));
+  }
+  out[t] = acc;
+}
+
+template <typename T>
+int launch_interp_adjoint(const int* rowptr, const int* src, const T* w,
+                          const T* v, T* out, int64_t G, int64_t n, int b,
+                          void* stream) {
+  if (G < 0 || n < 0 || b < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t total = G * b;
+  if (total == 0) return static_cast<int>(cudaGetLastError());
+  const int64_t blocks = (total + kAdjThreads - 1) / kAdjThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  interp_adjoint_kernel<T><<<static_cast<unsigned>(blocks), kAdjThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      rowptr, src, w, v, out, total, n, b);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -780,6 +856,22 @@ int gpim_rbf_bwd_reductions_f64(const double* Ainv, const double* Kt,
                                 void* stream) {
   return launch_rbf_bwd<double>(Ainv, Kt, alpha, mask, X, rw, wx, partials,
                                 counter, sums, n, d, tasks, stream);
+}
+
+// K4: out (G, b) = W^T v for the batch-first block v (b, n), W in CSR form
+// by cell (rowptr (G + 1), and each entry's point src and weight w).
+int gpim_interp_adjoint_f32(const int* rowptr, const int* src, const float* w,
+                            const float* v, float* out, int64_t G, int64_t n,
+                            int b, void* stream) {
+  return launch_interp_adjoint<float>(rowptr, src, w, v, out, G, n, b,
+                                      stream);
+}
+
+int gpim_interp_adjoint_f64(const int* rowptr, const int* src,
+                            const double* w, const double* v, double* out,
+                            int64_t G, int64_t n, int b, void* stream) {
+  return launch_interp_adjoint<double>(rowptr, src, w, v, out, G, n, b,
+                                       stream);
 }
 
 }  // extern "C"

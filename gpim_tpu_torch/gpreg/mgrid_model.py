@@ -24,6 +24,9 @@ value a segment for this.
 Prediction on a Cartesian test grid uses exact per-dimension
 cross-covariances and the Nystrom variance of the same eigen-root; scattered
 test points go through the per-point cross rows in chunks of up to 4096.
+At ``precond_rank`` 0 the predict-time solve is plain CG to its tolerance
+and the variance LOVE's, from ``rank`` Lanczos steps on the masked operator
+(:func:`ski.mgrid_solve_core`; ``gpim_tpu`` raises there).
 
 ``MaskedGridEngine.train(warm_start=True)`` is ``gpim_tpu``'s experimental
 warm-started CG (off the public ``skreconstructor`` surface there as here):
@@ -176,40 +179,57 @@ def _build_precond(u, axes, mask_flat, bounds, *, kernel, rank, shard=None):
 
 @torch.no_grad()
 def _predict_grid(u, axes, mask_flat, y_flat, t_axes, bounds, jitter, *,
-                  kernel, grid_shape, cg_iters, precond_rank, shard=None):
+                  kernel, grid_shape, cg_iters, precond_rank, shard=None,
+                  rank=0, seed=0, record=None):
+    """A Cartesian test grid of per-dim axes ``t_axes``: the cross factors
+    for the mean and the Nystrom or (at ``precond_rank`` 0) LOVE variance
+    (:func:`ski.make_grid_predictor`); ``record`` (a dict) receives the
+    solve's realized CG iterations."""
     predictor = ski.make_grid_predictor(kernel, axes, grid_shape, cg_iters,
-                                        precond_rank, shard)
+                                        precond_rank, shard, rank, seed)
     p = _constrain(u, bounds)
     mean, var = predictor(_kernel_params(p), p["noise"] + jitter, mask_flat,
                           (y_flat - p["mean"]) * mask_flat, t_axes,
                           p["variance"])
+    if record is not None:
+        record["cg_iters"] = predictor.cg_iters
     return mean + p["mean"], var + p["noise"]   # noiseless=False semantics
 
 
 @torch.no_grad()
 def _predict_points(u, axes, mask_flat, y_flat, Xt_chunks, bounds, jitter, *,
-                    kernel, grid_shape, cg_iters, precond_rank, shard=None):
+                    kernel, grid_shape, cg_iters, precond_rank, shard=None,
+                    rank=0, seed=0, record=None):
     """Scattered test points: per-point Kronecker cross rows contracted
-    mode by mode for the mean, the Nystrom extension for the variance, one
-    chunk at a time (d K1 launches a chunk)."""
+    mode by mode for the mean, the Nystrom extension (or, at
+    ``precond_rank`` 0, the LOVE variance of ``rank`` Lanczos steps) for
+    the variance, one chunk at a time (d K1 launches a chunk); ``record``
+    as in :func:`_predict_grid`."""
     p = _constrain(u, bounds)
     kp = _kernel_params(p)
-    am, Bmat, sel = ski.mgrid_solve_core(
+    sol = ski.mgrid_solve_core(
         kernel, kp, axes, grid_shape, mask_flat, precond_rank, cg_iters,
-        p["noise"] + jitter, (y_flat - p["mean"]) * mask_flat, shard)
+        p["noise"] + jitter, (y_flat - p["mean"]) * mask_flat, shard, rank,
+        seed)
+    if record is not None:
+        record["cg_iters"] = sol.cg_iters
     d = len(axes)
     means, variances = [], []
     for xc in Xt_chunks:
         E = ski.grid_cross_factors(kernel, kp, axes,
                                    [xc[:, k] for k in range(d)])
-        T = torch.einsum("bi,i...->b...", E[0], am)
+        T = torch.einsum("bi,i...->b...", E[0], sol.am)
         for k in range(1, d):
             T = torch.einsum("bi,bi...->b...", E[k], T)
         means.append(T)
-        B = E[0] @ sel[0]
+        if sol.T is not None:
+            variances.append(ski.points_love_var(
+                E, sol.MQ, sol.T, p["variance"]).clamp_min(0.0))
+            continue
+        B = E[0] @ sol.sel[0]
         for k in range(1, d):
-            B = B * (E[k] @ sel[k])
-        H = B @ Bmat
+            B = B * (E[k] @ sol.sel[k])
+        H = B @ sol.Bmat
         variances.append((p["variance"] - H.square().sum(1)).clamp_min(0.0))
     return (torch.cat(means) + p["mean"],
             torch.cat(variances) + p["noise"])
@@ -225,7 +245,9 @@ class MaskedGridEngine:
     draw ``gpim_tpu`` makes, so one seed gives both packages the same
     probes. ``precond_rank`` None means 1024 at 500k cells or more, else
     512 (a larger eigenspace costs little per CG iteration on the factored
-    basis and saves iterations at scale).
+    basis and saves iterations at scale). ``rank``, capped at G, is the
+    depth of the Lanczos factorisation of the LOVE variance at
+    ``precond_rank`` 0, started from JAX's Rademacher draw for ``seed``.
 
     With a ``mesh`` (its 'grid' axis of n ranks), this rank keeps its block
     of the first grid axis of the mask, the observations and the probes;
@@ -234,7 +256,7 @@ class MaskedGridEngine:
 
     def __init__(self, kernel, axes, mask_grid, y_grid, dtype, device, *,
                  cg_iters=64, n_probes=8, precond_rank=None, seed=0,
-                 mesh=None):
+                 mesh=None, rank=100):
         self.kernel = kernel
         self.dtype = dtype
         self.device = device
@@ -251,6 +273,8 @@ class MaskedGridEngine:
         if precond_rank is None:
             precond_rank = 1024 if G >= 500_000 else 512
         self.precond_rank = int(min(precond_rank, G))
+        self.rank = int(min(rank, G))
+        self.seed = seed
         rng = np.random.default_rng(seed)
         pm1 = np.asarray([-1.0, 1.0], np_dtype)
         # probes of the split operator, batch-first (a probe per row)
@@ -259,9 +283,11 @@ class MaskedGridEngine:
         if mesh is not None:
             self._shard = self._take_block(mesh)
         # the realized CG iterations of every step and the segment lengths
-        # of the last train() (the adaptive schedule's record)
+        # of the last train() (the adaptive schedule's record), and the
+        # realized CG iterations of the last predict()'s solve
         self.last_cg_iters = np.zeros((0,), np_dtype)
         self.last_segments = []
+        self.last_predict_cg_iters = None
 
     def _take_block(self, mesh):
         """Keep this rank's block of the mask, observations and probes;
@@ -380,17 +406,23 @@ class MaskedGridEngine:
         if fulldims is not None and len(fulldims) == len(self.grid_shape) \
                 and len(Xtest_clean) == math.prod(fulldims):
             t_axes = cartesian_axes_from_points(Xtest_clean, fulldims)
+        record = {}
         kw = dict(kernel=self.kernel, grid_shape=self.grid_shape,
                   cg_iters=self.cg_iters, precond_rank=self.precond_rank,
-                  shard=self._shard)
+                  shard=self._shard, rank=self.rank, seed=self.seed,
+                  record=record)
         t = lambda a: torch.as_tensor(  # noqa: E731
             np.asarray(a), dtype=self.dtype, device=self.device)
         if t_axes is not None:
             t_axes = [t(a) for a in t_axes]
             if self.mesh is None:
-                return _predict_grid(u, self._axes, self._mask, self._y,
-                                     t_axes, bounds, jitter, **kw)
-            return self._predict_grid_sharded(u, t_axes, bounds, jitter, kw)
+                out = _predict_grid(u, self._axes, self._mask, self._y,
+                                    t_axes, bounds, jitter, **kw)
+            else:
+                out = self._predict_grid_sharded(u, t_axes, bounds, jitter,
+                                                 kw)
+            self.last_predict_cg_iters = int(record["cg_iters"])
+            return out
         Xt = np.asarray(Xtest_clean)
         chunks, n_t = engine.chunk_rows(
             Xt, min(_PREDICT_CHUNK, max(128, len(Xt))))
@@ -403,6 +435,7 @@ class MaskedGridEngine:
         else:
             from gpim_tpu_torch.parallel.mesh import predict_rows
             mean, var = predict_rows(predict, t(chunks), self.mesh)
+        self.last_predict_cg_iters = int(record["cg_iters"])
         return mean[:n_t], var[:n_t]
 
     def _predict_grid_sharded(self, u, t_axes, bounds, jitter, kw):

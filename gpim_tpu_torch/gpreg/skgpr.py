@@ -47,6 +47,7 @@ kept: it sets the off-lattice route's Lanczos rank, and caps the SKI
 routes' preconditioner and Nystrom variance rank.
 """
 
+import math
 import time
 import warnings
 
@@ -233,7 +234,7 @@ class skreconstructor:
             self.kernel_type, lat_axes, ~np.isnan(y), y, self.dtype,
             self.device, cg_iters=opts["cg_iterations"],
             n_probes=opts["n_probes"], precond_rank=opts["precond_rank"],
-            seed=opts["seed"], mesh=self._mesh)
+            seed=opts["seed"], mesh=self._mesh, rank=int(self.maxroot))
         if self.verbose == 2:
             print("Masked-lattice grid:", np.shape(y))
 
@@ -370,14 +371,17 @@ class skreconstructor:
             self.num_batches = kwargs.get("num_batches")
         if kwargs.get("max_root") is not None:
             # kept, not dropped as in the reference (skgpr.py:305-306): it
-            # sets the off-lattice route's Lanczos rank, and on both SKI
-            # routes the variance root is the preconditioner's eigen-root,
-            # so max_root caps its rank and never raises it
-            # (gpim_tpu/gpreg/skgpr.py:357-376)
+            # sets both SKI routes' Lanczos rank (the masked lattice's at
+            # precond_rank 0 only), and on both SKI routes the variance root
+            # is otherwise the preconditioner's eigen-root, so max_root caps
+            # its rank and never raises it (gpim_tpu/gpreg/skgpr.py:357-376)
             self.maxroot = kwargs.get("max_root")
             if self._ski_engine is not None:
                 self._ski_engine.rank = int(
                     min(self.maxroot, self._Xd.shape[0]))
+            if self._mgrid_engine is not None:
+                self._mgrid_engine.rank = int(min(
+                    self.maxroot, math.prod(self._mgrid_engine.grid_shape)))
             eng = self._ski_engine or self._mgrid_engine
             if eng is not None and eng.precond_rank > 0:
                 capped = int(min(self.maxroot, eng.precond_rank))

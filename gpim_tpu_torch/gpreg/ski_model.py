@@ -6,8 +6,9 @@ lattice, or for any large data with ``lattice=False``.
 
 The points are linearly interpolated onto a Cartesian inducing grid
 (:func:`ski.choose_grid`, :func:`ski.build_interp`) and the operator is
-A v = W K_UU W^T v + (noise + jitter) v (:func:`ski.make_interp_mvm`: a
-scatter-add of the weighted corners, d mode products, a gather). Training
+A v = W K_UU W^T v + (noise + jitter) v (:func:`ski.make_interp_mvm`: the
+weighted corners summed onto the grid by K4 over W's CSR layout, built
+once here, d mode products, a gather). Training
 is Adam on the SKI marginal likelihood of :func:`ski.ski_mll`:
 split-preconditioned CG over the data and the Rademacher probes, the SLQ
 log-determinant and trace-estimated gradients, with the same constant mean,
@@ -27,8 +28,8 @@ order-invariant.
 
 Prediction takes every test point at once: the SKI mean, and the Nystrom
 variance of the preconditioner's eigen-root, or the LOVE variance of
-``rank`` Lanczos steps when ``precond_rank`` is 0
-(:func:`ski.make_ski_predictor`).
+``rank`` Lanczos steps when ``precond_rank`` is 0, whose solve then runs
+to CG's tolerance (:func:`ski.make_ski_predictor`).
 
 Not carried from ``gpim_tpu``: the sorted-corner form of the operator
 (``sorted_corners``, a TPU scatter-lowering device; the port applies the
@@ -43,7 +44,7 @@ import torch
 from gpim_tpu_torch.gpreg import engine
 from gpim_tpu_torch.gpreg.multi import _constrain_task as _constrain
 from gpim_tpu_torch.kernels.transforms import interval_log_jacobian
-from gpim_tpu_torch.ops import ski
+from gpim_tpu_torch.ops import gram_kernels, ski
 from gpim_tpu_torch.parallel.distributed import all_reduce, copy_to_shards
 
 __all__ = ["SKIEngine"]
@@ -134,6 +135,10 @@ class SKIEngine:
         self._i0, self._w0 = ti(i0[perm]), t(w0[perm])
         self._mask = t(np.asarray(mask, np_dtype)[perm])
         self._grids = [t(g) for g in self.grids_np]
+        # W's CSR layout by cell, for K4: every mvm of every train() and
+        # predict() of this data set
+        self._layout = gram_kernels.interp_layout(
+            self._idx, self._wgt, math.prod(self.grid_shape))
         n_pad = X_pad.shape[0]
         self.cg_iters = int(min(cg_iters, n_pad))
         self.rank = int(min(rank, n_pad))
@@ -147,9 +152,11 @@ class SKIEngine:
         # probes of the split operator, batch-first (a probe per row)
         self._g0 = t(rng.choice(pm1, size=(n_pad, n_probes)).T.copy())
         # the realized CG iterations of every step and the segment lengths
-        # of the last train() (the adaptive schedule's record)
+        # of the last train() (the adaptive schedule's record), and the
+        # realized CG iterations of the last predict()'s solve
         self.last_cg_iters = np.zeros((0,), np_dtype)
         self.last_segments = []
+        self.last_predict_cg_iters = None
 
     def train(self, u0, y, mask_, bounds, lr, jitter, *, iterations,
               record_cg_iters=False):
@@ -160,7 +167,8 @@ class SKIEngine:
         ``iterations`` <= 0."""
         y, mask_ = y[self._perm], mask_[self._perm]
         core = ski.ski_mll(self._idx, self._wgt, self.grid_shape,
-                           self.cg_iters, self._g0, return_iters=True)
+                           self.cg_iters, self._g0, return_iters=True,
+                           layout=self._layout)
         u, u_traj, losses, its, segments = engine.adam_segments(
             u0, lr, max(int(iterations), 0),
             lambda u: _build_precond(u, self._grids, self._i0, self._w0,
@@ -189,7 +197,7 @@ class SKIEngine:
         predictor = ski.make_ski_predictor(
             self.kernel, self._grids, self.grid_shape, self._idx, self._wgt,
             self._i0, self._w0, self._mask, self.cg_iters, self.rank,
-            self.precond_rank)
+            self.precond_rank, self._layout)
         p = _constrain(u, bounds)
         mask = mask[self._perm]
         yc = (y[self._perm] - p["mean"]) * mask
@@ -212,4 +220,5 @@ class SKIEngine:
         else:
             from gpim_tpu_torch.parallel.mesh import shard_gather
             mean, var = shard_gather(predict, Xt, mesh)
+        self.last_predict_cg_iters = int(predictor.cg_iters)
         return mean + p["mean"], var + p["noise"]   # noiseless=False

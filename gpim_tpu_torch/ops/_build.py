@@ -33,15 +33,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
-# C entry points per kernel; each exists as <name>_f32 and <name>_f64, takes
-# the task count just before the stream, and returns the cudaError_t of its
-# launch.
+# C entry points per kernel; each exists as <name>_f32 and <name>_f64 and
+# returns the cudaError_t of its launch; K1-K3 take the task count just
+# before the stream, K4 (interp_adjoint) has no task axis.
 _SIGNATURES = {
     "gpim_sqdist": (_P, _P, _P, _I64, _I64, _INT, _INT, _P),
     "gpim_masked_system": (_P, _P, _P, _P, _P, _P, _P, _I64, _INT, _INT,
                            _INT, _P),
     "gpim_rbf_bwd_reductions": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I64, _INT, _INT, _P),
+    "gpim_interp_adjoint": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _P),
 }
 
 

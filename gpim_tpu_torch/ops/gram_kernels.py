@@ -1,7 +1,8 @@
 """
-The three kernels of the exact-GP and VFE paths: CUDA for Hopper, each
-beside its plain PyTorch version. Counterpart of
-``gpim_tpu/ops/pallas_gram.py``.
+The three kernels of the exact-GP and VFE paths, and the interpolation
+adjoint of the off-lattice SKI route: CUDA for Hopper, each beside its
+plain PyTorch version. Counterpart of ``gpim_tpu/ops/pallas_gram.py``
+(K1-K3); K4 has no Pallas counterpart (see its section).
 
 Dispatch rule, the same for every wrapper: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel (``csrc/gram_kernels.cu``, built
@@ -10,18 +11,20 @@ fallback from CUDA to the plain version. The kernels are templated on
 float32 and float64, so every CUDA call goes through a kernel whatever the
 precision.
 
-Every wrapper and plain version takes an optional leading task axis: T
-independent problems in one call, the batch that ``gpim_tpu``'s ``vmap``
-over output channels gives its Pallas kernels (``gpim_tpu/gpreg/multi.py``).
+Every wrapper and plain version of K1-K3 takes an optional leading task
+axis: T independent problems in one call, the batch that ``gpim_tpu``'s
+``vmap`` over output channels gives its Pallas kernels
+(``gpim_tpu/gpreg/multi.py``).
 Per-task operands carry it; the padding mask, and K3's unscaled X, are
 shared. On CUDA the T problems are one launch, and an unbatched call is the
 same kernel at T = 1.
 
 Each wrapper counts its launches in a plain int attribute
 (``sqdist.launches``, ``masked_system.launches``,
-``rbf_bwd_reductions.launches``), incremented where the kernel is launched
-and nowhere else, so a run can show that its main path went through the
-kernels; a batched call is one launch. Inside :func:`log_calls`, every call
+``rbf_bwd_reductions.launches``, ``interp_adjoint.launches``),
+incremented where the kernel is launched and nowhere else, so a run can
+show that its main path went through the kernels; a batched call is one
+launch. Inside :func:`log_calls`, every call
 of K1, K2 or K3, on either device, also records its kernel, device type and
 operand shape, so a sharded run can show what share each rank computed.
 Wrappers check device, dtype, shape
@@ -32,6 +35,7 @@ current stream and never synchronise.
 import contextlib
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -42,6 +46,8 @@ __all__ = [
     "sqdist", "sqdist_plain",
     "masked_system", "masked_system_plain",
     "rbf_bwd_reductions", "rbf_bwd_reductions_plain",
+    "InterpLayout", "interp_layout", "interp_adjoint",
+    "interp_adjoint_plain",
 ]
 
 MAX_D = 8                    # feature count the CUDA kernels take
@@ -61,7 +67,12 @@ def min_traffic(name, n, d, m=None, itemsize=4, batch=1):
     once, whatever the kernel reads again; operations per element as the
     RBF form of its arithmetic does them, an exp counted as one. ``m`` is
     K1's column count, ``batch`` the number of tasks; the operands that the
-    tasks share (the mask, K3's X) count once."""
+    tasks share (the mask, K3's X) count once. For K4 (``interp_adjoint``)
+    ``n`` is the points, ``d`` their dimension (2^d corners each), ``m``
+    the grid cells G and ``batch`` the block's columns b: it reads the
+    block, each entry's weight and int32 point and the int32 row pointers,
+    and writes the (G, b) block; a multiply and an add an entry and
+    column."""
     T = batch
     if name == "sqdist":
         return (T * (n * d + m * d) * itemsize, T * n * m * itemsize,
@@ -75,6 +86,10 @@ def min_traffic(name, n, d, m=None, itemsize=4, batch=1):
         # diagsum a task
         return ((T * (2 * n * n + n) + n + n * d) * itemsize,
                 T * (2 + n + n * d) * itemsize, T * (2 * d + 6) * n * n)
+    if name == "interp_adjoint":
+        nnz = n * 2 ** d
+        return (T * n * itemsize + nnz * (itemsize + 4) + (m + 1) * 4,
+                m * T * itemsize, 2 * nnz * T)
     raise ValueError(name)
 
 
@@ -418,3 +433,113 @@ def rbf_bwd_reductions(Ainv, Kt, alpha, mask, X):
 
 
 rbf_bwd_reductions.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: the interpolation adjoint W^T v of the off-lattice SKI operator
+#
+# No Pallas counterpart: it replaces the index_add_ of the port's
+# ops/ski.py, whose counterpart in gpim_tpu is the sorted scatter-add of
+# ski_mvm (gpim_tpu/ops/ski.py:275, an XLA scatter with
+# indices_are_sorted). index_add_ on CUDA adds float atomics in no fixed
+# order, so two runs of one training differ. Here the (point, corner)
+# entries are sorted by their grid cell once a data set, stably (a CSR
+# layout, :func:`interp_layout`), and one thread sums one (cell, column)
+# output over its cell's entries in increasing entry order: no atomics, one
+# answer in every run, and the order in which index_add_ on the CPU adds.
+# Bound by bytes: it reads the block v, the sorted weights, the entries'
+# points and the row pointers once and writes the (G, b) block, ~45 MB at
+# the 1M off-lattice cube (n = 314624, G = 70^3, b = 9), against 2
+# operations an entry and column. The threads are (cell, column) pairs,
+# the column fastest: the b threads of a cell read each entry's weight and
+# point once between them (a broadcast), a cell's output row is one
+# contiguous store, and neighbouring cells read neighbouring points (the
+# points are sorted by their lower corner). Products and sums are rounded
+# one by one (no FMA), as the plain version rounds them. Not
+# differentiable: the SKI loss's backward differentiates the operator in
+# its factors and noise, never in v, and the wrapper raises on a v that
+# requires a gradient rather than drop it. It is also the gradient of the
+# operator's gather W (ops/ski.py _InterpApply), whose index_select would
+# otherwise backpropagate through index_add_.
+# ---------------------------------------------------------------------------
+
+class InterpLayout(NamedTuple):
+    """The interpolation weights W (n points, G cells) in CSR form by
+    cell: cell g's entries are ``rowptr[g]`` to ``rowptr[g + 1] - 1``,
+    entry k the weight ``wgt[k]`` of point ``src[k]``, in increasing
+    (point, corner) order within each cell."""
+    rowptr: torch.Tensor     # (G + 1,) int32
+    src: torch.Tensor        # (n 2^d,) int32
+    wgt: torch.Tensor        # (n 2^d,) the weights, in entry order
+    n: int
+    G: int
+
+
+def interp_layout(idx, wgt, G):
+    """:class:`InterpLayout` of the corner indices and weights ``idx``,
+    ``wgt`` (n, 2^d) of ``ski.build_interp`` on a grid of ``G`` cells, on
+    their device: ``perm``, the stable argsort of ``idx``'s flat entries,
+    gives each entry's point (``perm`` // 2^d) and weight; the row pointers
+    come from a count of the entries a cell. Built once a data set; reading
+    the count's length waits for the device once."""
+    n, S = idx.shape
+    if n * S >= 2 ** 31:
+        raise ValueError("interp_layout: %d entries do not fit int32"
+                         % (n * S))
+    flat = idx.reshape(-1).long()
+    perm = torch.argsort(flat, stable=True)
+    counts = torch.bincount(flat, minlength=G)
+    if counts.shape[0] != G:
+        raise ValueError("interp_layout: a corner index is >= G = %d" % G)
+    rowptr = torch.zeros(G + 1, dtype=torch.int32, device=idx.device)
+    rowptr[1:] = counts.cumsum(0)
+    src = torch.div(perm, S, rounding_mode="floor").to(torch.int32)
+    return InterpLayout(rowptr, src, wgt.reshape(-1)[perm].contiguous(),
+                        n, G)
+
+
+def interp_adjoint_plain(layout, v):
+    """W^T v as a (G, b) block for the batch-first block ``v`` (b, n):
+    ``index_add_`` of each entry's weighted row onto its cell, in entry
+    order (on the CPU index_add_ adds one index after another, so each
+    cell's sum runs in the kernel's order)."""
+    G = layout.G
+    cell = torch.repeat_interleave(
+        torch.arange(G, device=v.device), layout.rowptr.diff().long(),
+        output_size=layout.src.shape[0])
+    rows = v.mT.index_select(0, layout.src.long())
+    return v.new_zeros((G, v.shape[0])).index_add_(
+        0, cell, layout.wgt[:, None] * rows)
+
+
+def interp_adjoint(layout, v):
+    """K4 wrapper: W^T v, (b, n) -> (G, b), for the
+    :class:`InterpLayout` ``layout`` of W. On CUDA every output is one
+    thread's sum in a fixed order, so the result is the same in every run;
+    float32 agrees with the float64 :func:`interp_adjoint_plain` to about
+    1e-7 of the cell's sum of |w v| (a short f32 sum, each term rounded),
+    float64 to round-off."""
+    if v.requires_grad and torch.is_grad_enabled():
+        raise ValueError("interp_adjoint: v requires a gradient, which K4 "
+                         "does not give; detach it")
+    if v.dim() != 2 or v.shape[1] != layout.n:
+        raise ValueError("interp_adjoint: v must be (b, %d), got %s"
+                         % (layout.n, tuple(v.shape)))
+    if not v.is_cuda:
+        return interp_adjoint_plain(layout, v)
+    dtype = _check_cuda("interp_adjoint", (v, layout.wgt))
+    for t in (layout.rowptr, layout.src):
+        if t.device != v.device or t.dtype != torch.int32 \
+                or not t.is_contiguous():
+            raise ValueError("interp_adjoint: the layout's indices must be "
+                             "contiguous int32 on %s" % v.device)
+    b = v.shape[0]
+    out = torch.empty((layout.G, b), dtype=dtype, device=v.device)
+    _launch("gpim_interp_adjoint", dtype, _ptr(layout.rowptr),
+            _ptr(layout.src), _ptr(layout.wgt), _ptr(v), _ptr(out),
+            layout.G, layout.n, b, _stream(v))
+    interp_adjoint.launches += 1
+    return out
+
+
+interp_adjoint.launches = 0

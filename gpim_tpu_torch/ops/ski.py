@@ -34,13 +34,16 @@ no scatter (:func:`make_masked_grid_mvm`). Around it:
 
 Data off the lattice goes through linear interpolation onto a Cartesian
 inducing grid (:func:`choose_grid`, :func:`build_interp`): the operator is
-A v = W K_UU W^T v + (noise + jitter) v (:func:`make_interp_mvm`), W^T a
-scatter-add of the 2^d weighted corners, W a gather. Its preconditioner is
-the dense Nystrom basis of the interpolated Kronecker eigen-root
-(:func:`kron_eig_root`, :func:`split_root`), and its predictor
+A v = W K_UU W^T v + (noise + jitter) v (:func:`make_interp_mvm`), W^T the
+sum of the 2^d weighted corners onto each cell (K4, a CSR segmented sum in
+a fixed order, so the card gives one answer run to run), W a gather. Its
+preconditioner is the dense Nystrom basis of the interpolated Kronecker
+eigen-root (:func:`kron_eig_root`, :func:`split_root`), and its predictor
 (:func:`make_ski_predictor`) takes the Nystrom variance of that root or, at
 preconditioner rank 0, the LOVE variance of a Lanczos factorisation
-(:func:`lanczos`).
+(:func:`lanczos`, :func:`love_var`). The masked lattice's predictor does
+the same at rank 0 (:func:`mgrid_solve_core`); both routes then run the
+predict-time CG to its tolerance (:data:`PREDICT_CG_ITERS`).
 
 Every kernel factor and cross factor is built by the kernel functions, so
 on a CUDA tensor its distances are one K1 launch at d = 1. The operator
@@ -73,6 +76,7 @@ import numpy as np
 import torch
 
 from gpim_tpu_torch.kernels.functional import get_kernel_fn
+from gpim_tpu_torch.ops import gram_kernels as gk
 from gpim_tpu_torch.ops.kron_exact import modeprod
 from gpim_tpu_torch.ops.linalg import safe_cholesky, solve_triangular
 from gpim_tpu_torch.ops.prng import jax_rademacher
@@ -86,7 +90,8 @@ __all__ = [
     "mgrid_split_root", "batched_pcg", "batched_cg", "split_pcg",
     "ski_mll_from_mvm", "grid_kr_rows", "grid_nystrom_var",
     "grid_cross_factors", "make_grid_predictor", "mgrid_exact_var_probe",
-    "kernel_self_diag", "mgrid_solve_core",
+    "kernel_self_diag", "GridSolve", "mgrid_solve_core", "love_var",
+    "grid_love_var", "points_love_var", "PREDICT_CG_ITERS",
     "choose_grid", "build_interp", "build_interp_sep", "make_interp_mvm",
     "kron_eig_root", "ski_mll", "lanczos", "make_ski_predictor",
 ]
@@ -98,6 +103,12 @@ __all__ = [
 CG_EXIT_CHECK_EVERY = 4
 # row blocks of the Nystrom core and of the grid variance: ~256 MB each
 _BLOCK_BYTES = 256 * 1024 * 1024
+# The cap of the unpreconditioned predict-time solve (precond_rank 0, both
+# SKI routes), which otherwise runs to CG's relative-residual test: on ~9k
+# scattered points it needs ~160-210 iterations, and under the training cap
+# (cg_iterations, 64 by default) its mean moved by 1e-4 for a 1e-14 change
+# of the inputs. A departure: gpim_tpu caps this solve at cg_iterations.
+PREDICT_CG_ITERS = 1024
 
 
 # --------------------------------------------------------------------------
@@ -763,6 +774,12 @@ def grid_kr_rows(sel, lam_top, mask_flat=None):
     return out if mask_flat is None else out * mask_flat[:, None]
 
 
+def _rows_per_block(r, rest, itemsize):
+    """Rows of a leading axis such that an (r, rows, rest) block of this
+    item size stays within :data:`_BLOCK_BYTES`."""
+    return max(1, _BLOCK_BYTES // (itemsize * r * max(rest, 1)))
+
+
 def grid_nystrom_var(sel, Bmat, kss):
     """Nystrom predictive variance over a Cartesian test grid:
     kss - row_norms^2(Lt Bmat), with Lt's rows built a block of the leading
@@ -770,8 +787,7 @@ def grid_nystrom_var(sel, Bmat, kss):
     (rank, rank) carries the sqrt(lam) scaling and the Nystrom rotation
     (:func:`_nystrom_bmat`)."""
     rest = math.prod(s.shape[0] for s in sel[1:])
-    tb = max(1, _BLOCK_BYTES // (Bmat.element_size() * rest
-                                 * Bmat.shape[0]))
+    tb = _rows_per_block(Bmat.shape[0], rest, Bmat.element_size())
     sq = torch.cat([(_kr_block(sel, i, tb) @ Bmat).square().sum(1)
                     for i in range(0, sel[0].shape[0], tb)])
     return (kss - sq).clamp_min(0.0)
@@ -796,48 +812,144 @@ def kernel_self_diag(kernel, p, n, dtype):
         * p["variance"]
 
 
+class GridSolve(NamedTuple):
+    """The predict-time solve of the masked lattice
+    (:func:`mgrid_solve_core`): ``am`` = M alpha, grid-shaped and whole on
+    every rank, the realized CG iterations, and the variance's root: the
+    Nystrom rotation ``Bmat`` and mode tables ``sel`` at preconditioner
+    rank > 0, else the Lanczos basis ``MQ`` (r, *grid_shape), zero at the
+    masked cells and whole on every rank, and its tridiagonal ``T``."""
+    am: torch.Tensor
+    cg_iters: torch.Tensor
+    Bmat: torch.Tensor = None
+    sel: list = None
+    MQ: torch.Tensor = None
+    T: torch.Tensor = None
+
+
 def mgrid_solve_core(kernel, p, grids, grid_shape, mask_flat, rank,
-                     cg_iters, noise_pj, yc_flat, shard=None):
-    """The predict-time solve of the masked lattice: split-preconditioned
-    CG for alpha = A^-1 yc on the factored basis, uncapped mode selection
-    (the Nystrom variance uses this eigenspace with no CG behind it), and
-    the Nystrom rotation. Returns (alpha masked and grid-shaped, Bmat,
-    sel). The kernel factors are built once, for the basis and every mvm.
-    With a :class:`GridShard` the solve runs on this rank's block of the
-    cells (``mask_flat`` and ``yc_flat`` are blocks) and alpha is gathered
-    whole."""
+                     cg_iters, noise_pj, yc_flat, shard=None, lanczos_rank=0,
+                     seed=0):
+    """The predict-time solve of the masked lattice, a :class:`GridSolve`.
+    At preconditioner ``rank`` > 0: split-preconditioned CG for alpha =
+    A^-1 yc on the factored basis, capped at ``cg_iters``, uncapped mode
+    selection (the Nystrom variance uses this eigenspace with no CG behind
+    it), and the Nystrom rotation. At rank 0 (a departure: ``gpim_tpu``
+    raises there, in ``_kr_gram``): plain CG to its tolerance under
+    :data:`PREDICT_CG_ITERS`, and ``lanczos_rank`` Lanczos steps on the
+    masked operator from JAX's Rademacher draw for ``seed`` times the mask,
+    the root of the LOVE variance. The kernel factors are built once, for
+    the basis and every mvm. With a :class:`GridShard` the solve runs on
+    this rank's block of the cells (``mask_flat`` and ``yc_flat`` are
+    blocks; CG's and Lanczos's inner products are all-reduced) and alpha
+    and the Lanczos basis are gathered whole."""
     factors = grid_kernel_factors(kernel, p, grids)
     mvm = make_masked_grid_mvm(grid_shape, mask_flat, batch_first=True,
                                shard=shard)
+    group = None if shard is None else shard.group
+    if rank == 0:
+        alpha, _, _, its = batched_cg(
+            lambda v: mvm(factors, noise_pj, v), yc_flat[None, :],
+            PREDICT_CG_ITERS, vec_axis=1, return_iters=True, group=group)
+        v0 = torch.as_tensor(jax_rademacher(
+            seed, (math.prod(grid_shape),), str(yc_flat.dtype).split(".")[-1]),
+            device=yc_flat.device)
+        if shard is not None:
+            v0 = v0.reshape(grid_shape)[
+                shard.start:shard.start + shard.rows].reshape(-1)
+        Q, T = lanczos(lambda v: mvm(factors, noise_pj, v), v0 * mask_flat,
+                       lanczos_rank, group)
+        am, MQ = alpha[0] * mask_flat, Q * mask_flat
+        if shard is not None:
+            am, MQ = all_gather(am, group), all_gather(MQ, group, dim=1)
+        return GridSolve(am.reshape(tuple(grid_shape)), its,
+                         MQ=MQ.reshape((-1,) + tuple(grid_shape)), T=T)
     Qs, lam_n, Un, (lam_top, _, _, sel) = mgrid_split_root(
         factors, mask_flat, rank, dim_cap=None, shard=shard)
     pisqrt, _ = split_apply(Qs, lam_n, noise_pj, vec_axis=1)
-    alpha, _, _ = split_pcg(lambda v: mvm(factors, noise_pj, v), pisqrt,
-                            yc_flat[None, :], cg_iters, vec_axis=1,
-                            group=None if shard is None else shard.group)
+    alpha, _, _, its = split_pcg(lambda v: mvm(factors, noise_pj, v), pisqrt,
+                                 yc_flat[None, :], cg_iters, vec_axis=1,
+                                 return_iters=True, group=group)
     am = alpha[0] * mask_flat
     if shard is not None:
         am = all_gather(am, shard.group)
-    return (am.reshape(tuple(grid_shape)),
-            _nystrom_bmat(lam_top, noise_pj, lam_n, Un), sel)
+    return GridSolve(am.reshape(tuple(grid_shape)), its,
+                     Bmat=_nystrom_bmat(lam_top, noise_pj, lam_n, Un),
+                     sel=sel)
+
+
+def love_var(T, c_blocks, kss):
+    """The LOVE predictive variance without the noise, kss -
+    |L_T^-1 c_*|^2, with L_T the Cholesky factor of the Lanczos tridiagonal
+    T + 1e-6 tr(T) / r I and c_* = K_*U Q^T, over the columns of the
+    (r, m_j) blocks that ``c_blocks`` yields in turn (both SKI routes'
+    rank-0 predictors; gpim_tpu/ops/ski.py:1181-1195)."""
+    r = T.shape[0]
+    LT, _ = safe_cholesky(
+        T + 1e-6 * torch.trace(T) / r
+        * torch.eye(r, dtype=T.dtype, device=T.device))
+    return kss - torch.cat([solve_triangular(LT, c, lower=True).square()
+                            .sum(0) for c in c_blocks])
+
+
+def grid_love_var(C_list, MQ, T, kss):
+    """:func:`love_var` over the Cartesian test grid of the cross factors
+    ``C_list`` [(m_k, g_k)]: c_* = (x)_k C_k (M Q) for the Lanczos basis
+    ``MQ`` (r, g_1, ..., g_d), built a block of the test grid's leading
+    axis at a time, so no block exceeds :data:`_BLOCK_BYTES`."""
+    r = MQ.shape[0]
+    rest = math.prod(max(C.shape[0], C.shape[1]) for C in C_list[1:])
+    tb = _rows_per_block(r, rest, MQ.element_size())
+
+    def blocks():
+        for i in range(0, C_list[0].shape[0], tb):
+            t = _mode_bf(MQ, C_list[0][i:i + tb], 0)
+            for k in range(1, len(C_list)):
+                t = _mode_bf(t, C_list[k], k)
+            yield t.reshape(r, -1)
+    return love_var(T, blocks(), kss)
+
+
+def points_love_var(E, MQ, T, kss):
+    """:func:`love_var` at scattered test points with per-point cross rows
+    ``E`` [(m, g_k)]: column j of c_* contracts (M Q) mode by mode with
+    row j of every E_k, a block of points at a time within
+    :data:`_BLOCK_BYTES`."""
+    r = MQ.shape[0]
+    sb = _rows_per_block(r, math.prod(MQ.shape[2:]), MQ.element_size())
+
+    def blocks():
+        for j in range(0, E[0].shape[0], sb):
+            t = torch.einsum("bi,ri...->rb...", E[0][j:j + sb], MQ)
+            for Ek in E[1:]:
+                t = torch.einsum("bi,rbi...->rb...", Ek[j:j + sb], t)
+            yield t
+    return love_var(T, blocks(), kss)
 
 
 def make_grid_predictor(kernel, grids, grid_shape, cg_iters, precond_rank,
-                        shard=None):
+                        shard=None, lanczos_rank=0, seed=0):
     """Returns predict(p, noise_pj, mask_flat, yc_flat, t_axes, kss) ->
     (mean, var) over the Cartesian test grid of per-dim axes ``t_axes``:
     mean = (x)_k C_k (M alpha) with the exact cross-covariances C_k, var
-    the Nystrom extension of the eigen-root that preconditions the solve
-    (without the observation noise). With a :class:`GridShard` the solve is
-    sharded (:func:`mgrid_solve_core`); the test axes are the caller's."""
+    (without the observation noise) the Nystrom extension of the
+    eigen-root that preconditions the solve or, at ``precond_rank`` 0, the
+    LOVE variance of ``lanczos_rank`` Lanczos steps
+    (:func:`mgrid_solve_core`). With a :class:`GridShard` the solve is
+    sharded; the test axes are the caller's. ``predict.cg_iters`` holds
+    the last call's realized CG iterations."""
     def predict(p, noise_pj, mask_flat, yc_flat, t_axes, kss):
-        am, Bmat, sel = mgrid_solve_core(
+        sol = mgrid_solve_core(
             kernel, p, grids, grid_shape, mask_flat, precond_rank,
-            cg_iters, noise_pj, yc_flat, shard)
+            cg_iters, noise_pj, yc_flat, shard, lanczos_rank, seed)
+        predict.cg_iters = sol.cg_iters
         C_list = grid_cross_factors(kernel, p, grids, t_axes)
-        mean = modeprod(C_list, am).reshape(-1)
-        var = grid_nystrom_var([C @ s for C, s in zip(C_list, sel)], Bmat,
-                               kss)
+        mean = modeprod(C_list, sol.am).reshape(-1)
+        if sol.T is not None:
+            return mean, grid_love_var(C_list, sol.MQ, sol.T,
+                                       kss).clamp_min(0.0)
+        var = grid_nystrom_var([C @ s for C, s in zip(C_list, sol.sel)],
+                               sol.Bmat, kss)
         return mean, var
     return predict
 
@@ -941,19 +1053,6 @@ def build_interp_sep(X, grids):
 # off-lattice data: the interpolation operator and its eigen-root
 # --------------------------------------------------------------------------
 
-def _interp_adjoint(idx, wgt, v, G):
-    """W^T v: the 2^d weighted corners of each point of the batch-first
-    block ``v`` (b, n) scattered onto the grid, returned as a (G, b) grid
-    block. ``index_add_`` sums them, a row of b values per corner (on the
-    card this layout took 0.59 ms where a (b, G) block took 0.71, at
-    n = 314624, G = 70^3, b = 9); on CUDA its float atomics add in no fixed
-    order."""
-    b, (n, S) = v.shape[0], idx.shape
-    return v.new_zeros((G, b)).index_add_(
-        0, idx.reshape(-1), (wgt[:, :, None] * v.mT[:, None, :]).reshape(
-            n * S, b))
-
-
 def _interp_apply(idx, wgt, t):
     """W t: each point's 2^d corners gathered from the (G, b) grid block
     ``t`` and weighted; returns the batch-first (b, n)."""
@@ -962,25 +1061,51 @@ def _interp_apply(idx, wgt, t):
             * wgt[:, :, None]).sum(1).mT
 
 
-def make_interp_mvm(idx, wgt, grid_shape):
+class _InterpApply(torch.autograd.Function):
+    """:func:`_interp_apply` whose gradient in ``t`` is W^T g by K4 over
+    W's CSR ``layout``: ``index_select``'s own backward is ``index_add_``,
+    whose CUDA atomics add in no fixed order (the SKI loss's surrogate
+    backward differentiates the operator through this gather). On the CPU
+    both add in the same order, so the gradient is the same bit for bit."""
+
+    @staticmethod
+    def forward(ctx, t, idx, wgt, layout):
+        ctx.layout = layout
+        return _interp_apply(idx, wgt, t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gk.interp_adjoint(ctx.layout, g.contiguous()), None, None, \
+            None
+
+
+def make_interp_mvm(idx, wgt, grid_shape, layout=None):
     """mvm(factors, noise_pj, v) = W (x)_k factors_k W^T v + noise_pj v, the
     SKI operator of off-lattice points (gpim_tpu/ops/ski.py:239-301, its
     plain form), batch-first: ``v`` is (n,) or (b, n). ``idx`` (int64) and
     ``wgt`` (n, 2^d) come from :func:`build_interp`; the factors from
-    :func:`grid_kernel_factors`, built once by the caller. The grid block
-    between the scatter and the gather is (G, b)."""
+    :func:`grid_kernel_factors`, built once by the caller. W^T is K4
+    (:func:`gram_kernels.interp_adjoint`) over the CSR ``layout`` of W
+    (:func:`gram_kernels.interp_layout`, built here when not given and
+    kept as ``mvm.layout``); its (G, b) grid block feeds the mode products,
+    and W is a gather whose gradient in the grid block is K4 again, so a
+    backward through the operator runs no ``index_add_`` either."""
     grid_shape = tuple(int(s) for s in grid_shape)
     G = math.prod(grid_shape)
+    if layout is None:
+        layout = gk.interp_layout(idx, wgt, G)
 
     def mvm(factors, noise_pj, v):
         squeeze = v.dim() == 1
         if squeeze:
             v = v[None, :]
         b = v.shape[0]
-        t = modeprod(factors, _interp_adjoint(idx, wgt, v, G).reshape(
-            grid_shape + (b,)))
-        out = _interp_apply(idx, wgt, t.reshape(G, b)) + noise_pj * v
+        t = modeprod(factors, gk.interp_adjoint(
+            layout, v.contiguous()).reshape(grid_shape + (b,)))
+        out = _InterpApply.apply(t.reshape(G, b), idx, wgt, layout) \
+            + noise_pj * v
         return out[0] if squeeze else out
+    mvm.layout = layout
     return mvm
 
 
@@ -1011,34 +1136,44 @@ def kron_eig_root(modes, i0, w0, mask=None):
     return out if mask is None else out.mul_(mask[:, None])
 
 
-def ski_mll(idx, wgt, grid_shape, cg_iters, g0, return_iters=False):
+def ski_mll(idx, wgt, grid_shape, cg_iters, g0, return_iters=False,
+            layout=None):
     """:func:`ski_mll_from_mvm` over the interpolation operator
     (gpim_tpu/ops/ski.py:844-882): core(factors, noise_pj, yc, Q, lam_n),
     with ``g0`` (p, n) the batch-first probes and (Q, lam_n) the dense
-    Nystrom basis of :func:`kron_eig_root` through :func:`split_root`."""
-    return ski_mll_from_mvm(make_interp_mvm(idx, wgt, grid_shape), cg_iters,
-                            g0, return_iters=return_iters)
+    Nystrom basis of :func:`kron_eig_root` through :func:`split_root`;
+    ``layout`` as in :func:`make_interp_mvm`."""
+    return ski_mll_from_mvm(make_interp_mvm(idx, wgt, grid_shape, layout),
+                            cg_iters, g0, return_iters=return_iters)
 
 
 # --------------------------------------------------------------------------
 # off-lattice prediction: the SKI mean, the Nystrom or LOVE variance
 # --------------------------------------------------------------------------
 
-def lanczos(mvm, v0, rank):
+def lanczos(mvm, v0, rank, group=None):
     """``rank`` Lanczos steps on ``mvm`` from ``v0`` (n,) with full
     reorthogonalisation (gpim_tpu/ops/ski.py:1064-1089): returns Q (rank, n)
     and the tridiagonal T (rank, rank). A breakdown divides by 1e-30 rather
-    than stopping, as there, so nothing waits for the device."""
-    q = v0 / v0.norm().clamp_min(1e-30)
+    than stopping, as there, so nothing waits for the device. With
+    ``group``, ``v0`` and every vector ``mvm`` takes are this rank's block
+    of the entries: the dots, the norms and the reorthogonalisation's
+    products are all-reduced over it, so every rank holds its block of the
+    same Q and the whole T."""
+    def norm(x):
+        return x.norm() if group is None else all_reduce(
+            torch.dot(x, x), group).sqrt()
+    q = v0 / norm(v0).clamp_min(1e-30)
     Q = v0.new_zeros((rank,) + tuple(v0.shape))
     alphas, betas = v0.new_empty(rank), v0.new_empty(rank)
     q_prev, beta = torch.zeros_like(q), v0.new_zeros(())
     for k in range(rank):
         w = mvm(q)
-        alpha = torch.dot(q, w)
+        alpha = all_reduce(torch.dot(q, w), group)
         w = w - alpha * q - beta * q_prev
-        w = w - Q.mT @ (Q @ w)           # rows k and on are still zero
-        beta = w.norm()
+        # rows k and on of Q are still zero
+        w = w - Q.mT @ all_reduce(Q @ w, group)
+        beta = norm(w)
         Q[k] = q
         alphas[k], betas[k] = alpha, beta
         q_prev, q = q, w / beta.clamp_min(1e-30)
@@ -1048,7 +1183,7 @@ def lanczos(mvm, v0, rank):
 
 
 def make_ski_predictor(kernel, grids, grid_shape, idx, wgt, i0, w0, mask,
-                       cg_iters, rank, precond_rank=0):
+                       cg_iters, rank, precond_rank=0, layout=None):
     """Returns predict(p, noise_pj, yc, test_idx, test_wgt, t_i0, t_w0, kss,
     seed) -> (mean, var), the SKI posterior at the test points
     (gpim_tpu/ops/ski.py:1092-1199), without the noise term:
@@ -1056,26 +1191,31 @@ def make_ski_predictor(kernel, grids, grid_shape, idx, wgt, i0, w0, mask,
         mean_* = w_*^T K_UU W^T alpha,   alpha = A^-1 yc.
 
     With ``precond_rank`` > 0 the solve is split-preconditioned by the
-    Kronecker eigen-root, and the variance is the Nystrom extension of the
-    same root: kss - row_norms^2(Lt Un sqrt(lam_n / (lam_n + noise))), with
-    Lp^T Lp = Un lam_n Un^T for the training-side root Lp and Lt the
-    test-side root. At 0 the solve is Jacobi-preconditioned CG and the
-    variance LOVE's: kss - c_*^T T^-1 c_* with c_* = w_*^T K_UU W^T Q^T and
-    Q, T from ``rank`` Lanczos steps on A, started from JAX's Rademacher
-    draw for ``seed``. ``idx``, ``wgt``, ``i0``, ``w0`` and ``mask`` are the
-    training points' interpolation; the kernel factors are built once a
-    call (d K1 launches on CUDA)."""
+    Kronecker eigen-root, capped at ``cg_iters``, and the variance is the
+    Nystrom extension of the same root: kss - row_norms^2(Lt Un
+    sqrt(lam_n / (lam_n + noise))), with Lp^T Lp = Un lam_n Un^T for the
+    training-side root Lp and Lt the test-side root. At 0 the solve is
+    Jacobi-preconditioned CG run to its tolerance under
+    :data:`PREDICT_CG_ITERS` (a departure: ``gpim_tpu`` caps it at
+    ``cg_iters``), and the variance LOVE's (:func:`love_var`) with
+    c_* = w_*^T K_UU W^T Q^T and Q, T from ``rank`` Lanczos steps on A,
+    started from JAX's Rademacher draw for ``seed``. ``idx``, ``wgt``,
+    ``i0``, ``w0`` and ``mask`` are the training points' interpolation,
+    ``layout`` W's CSR form (:func:`make_interp_mvm`); the kernel factors
+    are built once a call (d K1 launches on CUDA). ``predict.cg_iters``
+    holds the last call's realized CG iterations."""
     grid_shape = tuple(int(s) for s in grid_shape)
     G = math.prod(grid_shape)
-    op = make_interp_mvm(idx, wgt, grid_shape)
+    op = make_interp_mvm(idx, wgt, grid_shape, layout)
 
     def predict(p, noise_pj, yc, test_idx, test_wgt, t_i0, t_w0, kss, seed):
         factors = grid_kernel_factors(kernel, p, grids)
 
         def kuu_wt(v):                                  # (b, n) -> (G, b)
             b = v.shape[0]
-            return modeprod(factors, _interp_adjoint(idx, wgt, v, G).reshape(
-                grid_shape + (b,))).reshape(G, b)
+            return modeprod(factors, gk.interp_adjoint(
+                op.layout, v.contiguous()).reshape(grid_shape + (b,))
+            ).reshape(G, b)
 
         def mvm(v):
             return op(factors, noise_pj, v)
@@ -1083,11 +1223,13 @@ def make_ski_predictor(kernel, grids, grid_shape, idx, wgt, i0, w0, mask,
             modes = _kron_top_modes(factors, precond_rank)
             Qs, lam_n, Un = split_root(kron_eig_root(modes, i0, w0, mask))
             pisqrt, _ = split_apply(Qs, lam_n, noise_pj, vec_axis=1)
-            alpha = split_pcg(mvm, pisqrt, yc[None, :], cg_iters,
-                              vec_axis=1)[0]
+            alpha, _, _, its = split_pcg(mvm, pisqrt, yc[None, :], cg_iters,
+                                         return_iters=True, vec_axis=1)
         else:
-            alpha = batched_pcg(mvm, lambda r: r / noise_pj, yc[None, :],
-                                cg_iters, vec_axis=1)[0]
+            alpha, _, _, its = batched_pcg(
+                mvm, lambda r: r / noise_pj, yc[None, :], PREDICT_CG_ITERS,
+                return_iters=True, vec_axis=1)
+        predict.cg_iters = its
         mean = _interp_apply(test_idx, test_wgt, kuu_wt(alpha))[0]
         if precond_rank > 0:
             H = kron_eig_root(modes, t_i0, t_w0) @ Un
@@ -1099,13 +1241,8 @@ def make_ski_predictor(kernel, grids, grid_shape, idx, wgt, i0, w0, mask,
                                str(yc.dtype).split(".")[-1]),
                 device=yc.device)
             Q, T = lanczos(mvm, v0, rank)
-            c_star = _interp_apply(test_idx, test_wgt, kuu_wt(Q))  # (r, m)
-            r = T.shape[0]
-            LT, _ = safe_cholesky(
-                T + 1e-6 * torch.trace(T) / r
-                * torch.eye(r, dtype=T.dtype, device=T.device))
-            half = solve_triangular(LT, c_star, lower=True)
-            var = kss - half.square().sum(0)
+            var = love_var(
+                T, [_interp_apply(test_idx, test_wgt, kuu_wt(Q))], kss)
         return mean, var.clamp_min(0.0)
 
     return predict

@@ -168,7 +168,8 @@ def _run_spec(spec_path, out, rank, device):
         spec = json.load(f)
     arrays = dict(np.load(os.path.join(os.path.dirname(spec_path),
                                        spec["arrays"])))
-    kernels = (gk.sqdist, gk.masked_system, gk.rbf_bwd_reductions)
+    kernels = (gk.sqdist, gk.masked_system, gk.rbf_bwd_reductions,
+               gk.interp_adjoint)
     for run in spec["runs"]:
         walls = []
         for _ in range(int(run.get("repeat", 1))):

@@ -13,7 +13,10 @@ the multi-output losses and gradients against the CPU path; and K1 at the
 exact Kronecker route's one-feature shapes, with the Kronecker and spectral
 losses and gradients against the CPU path; K1 at the masked-lattice and
 off-lattice SKI routes' factor shapes, with their operators and losses
-against the CPU path. One test, of the bytes the kernels' bounds count,
+against the CPU path; K4, the off-lattice interpolation adjoint, against
+its plain version on ragged grids with empty cells, bit-equal run to run,
+and launched by an off-lattice run(); the f32 predictive sd in the
+cancellation regime. One test, of the bytes the kernels' bounds count,
 runs on the CPU.
 
 The tests marked ``cuda`` need a CUDA device and skip without one. The file
@@ -227,6 +230,14 @@ def test_min_traffic_counts_each_byte_once():
     assert (read, written) == ((4096 + n) * d * f32, 4096 * n * f32)
     read8, written8, _ = gk.min_traffic("masked_system", n, d, itemsize=8)
     assert (read8, written8) == (2 * (n * d + n + 3) * f32, 2 * 301_989_888)
+    # K4 at the 1M off-lattice cube: v, the entries' weights and points,
+    # the row pointers, the (G, b) output; ~45 MB
+    pts, G, b = 314624, 70 ** 3, 9
+    read, written, ops = gk.min_traffic("interp_adjoint", pts, 3, m=G,
+                                        batch=b)
+    assert read == (pts * b + 8 * pts * 2 + G + 1) * f32
+    assert written == G * b * f32 and ops == 2 * 8 * pts * b
+    assert 45.0e6 < read + written < 45.5e6
 
 
 @cuda
@@ -810,9 +821,9 @@ def _ski_problem(rng, n=700, d=3):
 @cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_off_lattice_operator_cuda_vs_cpu(dev, dtype):
-    """W K_UU W^T v + noise v (index_add_ scatter, mode products, gather)
-    on a (5, n) block, card against CPU: index_add_'s atomics sum in
-    another order, so the two agree to round-off."""
+    """W K_UU W^T v + noise v (K4's sum onto the grid, mode products,
+    gather) on a (5, n) block, card against CPU: the mode products' gemms
+    sum in another order, so the two agree to round-off."""
     from gpim_tpu_torch.ops import ski
     X, mask, grids, _, _, _ = _ski_problem(np.random.RandomState(22))
     idx, wgt = ski.build_interp(X, grids, mask)
@@ -874,3 +885,153 @@ def test_off_lattice_loss_and_gradient_cuda_vs_cpu(dev, dtype):
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-9 if f64 else 1e-3,
                                    atol=1e-12 if f64 else 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the f32 predictive sd in the cancellation regime (the twin of
+# tests/test_round3_fixes.py::test_predictive_sd_f32_small_noise_long_
+# lengthscale): cuSOLVER's Cholesky and the triangular inverse round
+# otherwise than the CPU's
+# ---------------------------------------------------------------------------
+
+def sd_cancellation_case(device):
+    """engine.predict_exact in float32 on ``device`` against a
+    backward-stable float64 numpy twin (Cholesky solves, no explicit
+    inverse) at tiny noise and a lengthscale of half the domain, where the
+    posterior sd collapses toward sqrt(noise) near the data: returns (the
+    largest mean error over the largest |mean|, the largest sd error over
+    the prior sd, the smallest sd)."""
+    from gpim_tpu_torch.kernels.transforms import (interval_inverse,
+                                                   positive_inverse)
+    rng = np.random.RandomState(3)
+    n, m = 256, 128
+    X64 = rng.uniform(0.0, 20.0, size=(n, 2))
+    y64 = np.sin(0.3 * X64[:, 0]) * np.cos(0.2 * X64[:, 1])
+    Xt64 = rng.uniform(0.0, 20.0, size=(m, 2))
+    ls, var, noise, jitter = 10.0, 1.0, 1e-4, 1e-6
+
+    def k64(A, B):
+        d2 = ((A[:, None, :] - B[None, :, :]) ** 2).sum(-1)
+        return var * np.exp(-0.5 * d2 / ls ** 2)
+
+    A = k64(X64, X64) + (noise + jitter) * np.eye(n)
+    L = np.linalg.cholesky(A)
+    Ks = k64(Xt64, X64)
+    mean64 = Ks @ np.linalg.solve(A, y64)
+    V = np.linalg.solve(L, Ks.T)
+    sd64 = np.sqrt(var - np.sum(V * V, axis=0) + noise)
+
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32),  # noqa: E731
+                                  device=device)
+    bounds = {"ls_lo": t([0.1, 0.1]), "ls_hi": t([20.0, 20.0]),
+              "var_lo": t(1e-4), "var_hi": t(10.0)}
+    u = {"lengthscale": interval_inverse(t([ls, ls]), bounds["ls_lo"],
+                                         bounds["ls_hi"]),
+         "variance": interval_inverse(t(var), bounds["var_lo"],
+                                      bounds["var_hi"]),
+         "noise": positive_inverse(t(noise))}
+    mean32, var32 = engine.predict_exact(
+        u, t(X64), t(y64), t(np.ones(n)), bounds, t(jitter),
+        t(Xt64).reshape(1, m, 2), kernel="RBF", noiseless=False)
+    mean32 = mean32.cpu().numpy()
+    sd32 = np.sqrt(var32.cpu().numpy())
+    return (np.max(np.abs(mean32 - mean64)) / np.max(np.abs(mean64)),
+            np.max(np.abs(sd32 - sd64)) / np.sqrt(var), float(sd32.min()))
+
+
+@cuda
+def test_predictive_sd_f32_small_noise_long_lengthscale(dev):
+    """On the card: the mean within 1e-3 of its scale, the sd within 5e-3
+    of the prior sd and never negative."""
+    mean_err, sd_err, sd_min = sd_cancellation_case(dev)
+    assert mean_err < 1e-3 and sd_err < 5e-3 and sd_min >= 0.0
+
+
+# ---------------------------------------------------------------------------
+# K4: the interpolation adjoint
+# ---------------------------------------------------------------------------
+
+# normalized by the largest sum of |w v| over a cell: a few f32 roundings
+TOL_K4 = {torch.float32: 1e-6, torch.float64: 1e-12}
+
+
+def _k4_problem(dev, dtype, d, n, ratio, seed=0):
+    from gpim_tpu_torch.ops import ski
+    rng = np.random.RandomState(seed)
+    X = rng.rand(n, d) * 10.0
+    mask = (rng.rand(n) < 0.85).astype(float)
+    grids = ski.choose_grid(X, ratio=ratio)
+    idx, wgt = ski.build_interp(X, grids, mask)
+    G = int(np.prod([len(g) for g in grids]))
+    return gk.interp_layout(
+        torch.as_tensor(idx, dtype=torch.int64, device=dev),
+        torch.as_tensor(wgt, dtype=dtype, device=dev), G)
+
+
+@cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [1, 9, 100])
+@pytest.mark.parametrize("d, n, ratio", [(2, 3000, 1.9), (3, 5000, 1.25)])
+def test_interp_adjoint_matches_plain(dev, dtype, b, d, n, ratio):
+    """Ragged grids (G not a multiple of the block) with many empty cells,
+    which come out exactly 0; two launches bit-equal; one launch counted."""
+    lay = _k4_problem(dev, dtype, d, n, ratio)
+    counts = lay.rowptr.diff()
+    assert (counts == 0).any() and lay.G * b % 256 != 0
+    v = _rand((b, n), dtype, dev, seed=b) - 0.5
+    before = gk.interp_adjoint.launches
+    out = gk.interp_adjoint(lay, v)
+    again = gk.interp_adjoint(lay, v)
+    assert gk.interp_adjoint.launches - before == 2
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert (out[counts == 0] == 0).all()
+    lay64 = lay._replace(wgt=lay.wgt.double())
+    ref = gk.interp_adjoint_plain(lay64, v.double())
+    scale = gk.interp_adjoint_plain(lay64._replace(wgt=lay64.wgt.abs()),
+                                    v.double().abs()).max()
+    _close(out, ref, scale, dtype, TOL_K4)
+
+
+@cuda
+def test_interp_adjoint_checks_its_operands(dev):
+    lay = _k4_problem(dev, torch.float32, 2, 200, 1.5)
+    v = torch.rand(3, 200, device=dev)
+    with pytest.raises(ValueError, match="gradient"):
+        gk.interp_adjoint(lay, v.clone().requires_grad_(True))
+    with pytest.raises(ValueError):
+        gk.interp_adjoint(lay, v[:, :199])
+    with pytest.raises(ValueError):
+        gk.interp_adjoint(lay, torch.rand(200, 3, device=dev).mT)
+    with pytest.raises(TypeError):
+        gk.interp_adjoint(lay, v.double())
+    with pytest.raises(ValueError):
+        gk.interp_adjoint(lay._replace(src=lay.src.long()), v)
+
+
+@cuda
+def test_an_off_lattice_run_launches_k4_and_repeats_bit_for_bit(dev):
+    """skreconstructor(lattice=False) on the card: every mvm of training
+    and predict goes through K4 (no index_add_), and two runs in float32
+    give the same mean, sd and series bit for bit."""
+    import gpim_tpu_torch
+    from gpim_tpu_torch import utils
+    rng = np.random.RandomState(5)
+    shape = (16, 14, 6)
+    R = rng.rand(*shape)
+    R.reshape(-1, shape[2])[rng.choice(16 * 14, 100, replace=False)] = \
+        np.nan
+    X, Xf = utils.get_sparse_grid(R), utils.get_full_grid(R)
+    runs = []
+    for _ in range(2):
+        m = gpim_tpu_torch.skreconstructor(
+            X, R, Xf, kernel="RBF", iterations=4, learning_rate=0.1,
+            verbose=0, ski=True, ski_min_points=1, lattice=False,
+            precision="single")
+        assert m._ski_engine is not None
+        before = gk.interp_adjoint.launches
+        mean, sd, hp = m.run()
+        runs.append([mean, sd, hp["lengthscale"], hp["noise"], m.losses])
+        assert gk.interp_adjoint.launches - before > 4
+    for a, b in zip(*runs):
+        assert np.array_equal(a, b)

@@ -1,7 +1,9 @@
 """
 gpim_tpu_torch.reconstructor (exact and sparse branches) against
 gpim_tpu.reconstructor on the same data: the twin of tests/test_gpr.py for
-the port, plus checkpoint interchange from the JAX package to the port.
+the port, plus checkpoint interchange from the JAX package to the port,
+and the reference's fixes pinned on the port (a double checkpoint loaded
+into a single model, the f32 predictive sd in the cancellation regime).
 """
 
 import numpy as np
@@ -15,6 +17,7 @@ from gpim_tpu import utils as jutils
 import gpim_tpu_torch
 from gpim_tpu_torch.parallel.mesh import LocalMesh
 from gpim_tpu_torch import utils
+from test_torch_cuda_kernels import sd_cancellation_case
 
 KERNELS = ["RBF", "Matern52", "RationalQuadratic"]
 
@@ -324,3 +327,37 @@ def test_same_grids_as_gpim_tpu_utils():
     R = get_dummy_data()
     assert np.array_equal(utils.get_sparse_grid(R), jutils.get_sparse_grid(R),
                           equal_nan=True)
+
+
+def test_load_model_casts_to_model_dtype(tmp_path):
+    """tests/test_round2_fixes.py's fix on the port: a double checkpoint
+    loaded into a single model casts every parameter and bound to
+    float32, and the model predicts finite values."""
+    R = get_dummy_data(seed=3, nan_holes=60)
+    X, X_full = utils.get_sparse_grid(R), utils.get_full_grid(R)
+    kw = dict(iterations=2, verbose=0, use_gpu=False)
+    m64 = gpim_tpu_torch.reconstructor(X, R, X_full, precision="double",
+                                       **kw)
+    m64.train()
+    path = str(tmp_path / "ck.npz")
+    m64.save_model(path)
+    m32 = gpim_tpu_torch.reconstructor(X, R, X_full, precision="single",
+                                       **kw)
+    m32.load_model(path)
+    for k, v in m32.u.items():
+        assert v.dtype == torch.float32, (k, v.dtype)
+    for k, v in m32._bounds_np.items():
+        assert v.dtype == np.float32, (k, v.dtype)
+    assert all(v.dtype == torch.float32 for v in m32._bounds().values())
+    mean, sd = m32.predict(verbose=0)
+    assert mean.dtype == sd.dtype == np.float32
+    assert np.isfinite(mean[~np.isnan(mean)]).all()
+
+
+def test_predictive_sd_f32_small_noise_long_lengthscale():
+    """tests/test_round3_fixes.py's case on the port's CPU path: the f32
+    explicit-inverse predict against a float64 Cholesky twin, the mean
+    within 1e-3 of its scale, the sd within 5e-3 of the prior sd and never
+    negative (tests/test_torch_cuda_kernels.py has its card twin)."""
+    mean_err, sd_err, sd_min = sd_cancellation_case(torch.device("cpu"))
+    assert mean_err < 1e-3 and sd_err < 5e-3 and sd_min >= 0.0

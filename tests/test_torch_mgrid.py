@@ -10,7 +10,9 @@ exact GP (the check of
 tests/test_ski.py::test_masked_grid_engine_matches_dense_exact); run() in
 RBF and Matern52 (float64, rtol 1e-6) and in float32 (1e-3); max_root
 capping the preconditioner rank; update_data() between the dense,
-masked-lattice and Kronecker routes; checkpoints both ways.
+masked-lattice and Kronecker routes; checkpoints both ways. And the port's
+own predict at precond_rank 0 (where gpim_tpu raises): CG to its tolerance
+and the LOVE variance, against a dense exact GP.
 """
 
 import numpy as np
@@ -476,3 +478,56 @@ def test_adam_segments_resets_the_carry_at_each_segment():
     # 12 CG iterations hold every segment at 2 steps
     assert builds == [0, 2, 4, 6]
     assert seen == [(1, 0), (1, 1), (2, 0), (2, 1), (3, 0), (3, 1), (4, 0)]
+
+
+def test_rank0_run_matches_a_dense_exact_gp():
+    """skreconstructor(ski=True, lattice=True, precond_rank=0).run() on a
+    16 x 16 toy predicts (gpim_tpu raises in its Nystrom core): the mean
+    of CG run to its tolerance equals a dense exact GP of the trained
+    hyperparameters to rtol 1e-8, and the LOVE variance at a Lanczos depth
+    of n_obs its exact posterior variance to rtol 1e-4, on the Cartesian
+    grid and at scattered points; max_root sets the depth."""
+    rng = np.random.RandomState(7)
+    n = 16
+    xx, yy = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    R = np.sin(xx / 3.0) * np.cos(yy / 4.0) + 0.05 * rng.randn(n, n)
+    R.ravel()[rng.choice(n * n, 100, replace=False)] = np.nan
+    obs = ~np.isnan(R.ravel())
+    n_obs = int(obs.sum())
+    m = gpim_tpu_torch.skreconstructor(
+        jutils.get_sparse_grid(R), R, jutils.get_full_grid(R),
+        kernel="RBF", iterations=20, learning_rate=0.1, verbose=0,
+        ski=True, ski_min_points=1, precond_rank=0, precision="double",
+        use_gpu=False)
+    eng = m._mgrid_engine
+    assert eng is not None and eng.precond_rank == 0 and eng.rank == 100
+    m.predict(max_root=n_obs)
+    assert eng.rank == n_obs
+    mean, sd, _ = m.run()
+    assert eng.last_predict_cg_iters > 0
+    from gpim_tpu_torch.gpreg.multi import _constrain_task
+    p = {k: v.numpy() for k, v in _constrain_task(
+        {k: v[0] for k, v in m.u.items()}, m._bounds()).items()}
+    ls, var, noise = p["lengthscale"], float(p["variance"]), float(p["noise"])
+    pts = np.stack([xx.ravel(), yy.ravel()], 1).astype(np.float64)
+
+    def k(a, b):
+        d2 = (((a[:, None, :] - b[None, :, :]) / ls) ** 2).sum(-1)
+        return var * np.exp(-0.5 * d2)
+
+    A = k(pts[obs], pts[obs]) + (noise + m.jitter) * np.eye(n_obs)
+    alpha = np.linalg.solve(A, R.ravel()[obs] - float(p["mean"]))
+
+    def exact(Xt):
+        Ks = k(Xt, pts[obs])
+        return (Ks @ alpha + float(p["mean"]),
+                var - np.einsum("ij,ji->i", Ks, np.linalg.solve(A, Ks.T))
+                + noise)
+    mean_ref, var_ref = exact(pts)
+    _close(mean.ravel(), mean_ref, 1e-8)
+    assert_allclose(sd.ravel() ** 2, var_ref, rtol=1e-4)
+    Xs = rng.rand(2, 5, 8) * (n - 1)
+    mean_s, sd_s = m.predict(Xs)
+    mean_ref, var_ref = exact(Xs.reshape(2, -1).T)
+    _close(mean_s.ravel(), mean_ref, 1e-8)
+    assert_allclose(sd_s.ravel() ** 2, var_ref, rtol=1e-4)

@@ -13,7 +13,10 @@ exactly, mean and sd) and on genuinely scattered 2D points in float32
 rank 0, Lanczos); max_root; checkpoints both ways; the engine's
 permutation invariance (the twin of
 tests/test_ski.py::test_ski_engine_sorted_internally); update_data() across
-all four structured and dense routes.
+all four structured and dense routes. And the port's own pieces: K4's plain
+version (W^T through W's CSR layout) against a dense W^T and against the
+index_add_ it replaced, and the rank-0 predict, whose solve runs to CG's
+tolerance past the training cap, against a dense solve.
 """
 
 from functools import partial
@@ -34,6 +37,8 @@ from gpim_tpu.ops import ski as jski
 
 import gpim_tpu_torch
 from gpim_tpu_torch.gpreg import ski_model
+from gpim_tpu_torch.gpreg.multi import _constrain_task
+from gpim_tpu_torch.ops import gram_kernels as gk
 from gpim_tpu_torch.ops import ski
 from gpim_tpu_torch.ops.prng import jax_rademacher
 
@@ -460,3 +465,125 @@ def test_update_data_moves_across_every_route():
     mean, sd = m.predict()
     assert np.isfinite(mean).all() and np.isfinite(sd).all()
     assert np.sqrt(np.mean((mean - truth) ** 2)) < 0.1
+
+
+# --------------------------------------------------------------------------
+# K4's plain version and the rank-0 predict (the port's own)
+# --------------------------------------------------------------------------
+
+def _dense_w(idx, wgt, G):
+    """W (n, G) from the corner indices and weights."""
+    W = np.zeros((idx.shape[0], G))
+    for s in range(idx.shape[1]):
+        np.add.at(W, (np.arange(idx.shape[0]), idx[:, s]), wgt[:, s])
+    return W
+
+
+@pytest.mark.parametrize("b", [1, 9])
+@pytest.mark.parametrize("d, n, ratio", [(2, 150, 1.7), (3, 90, 1.3)])
+def test_interp_adjoint_plain_matches_a_dense_adjoint(d, n, ratio, b):
+    """W^T v through the CSR layout against a dense numpy W^T v (1e-14 of
+    the largest entry), on ragged grids (19^2 + padding, 8^3) whose cells
+    are mostly empty; bit for bit the index_add_ expression it replaced;
+    and a v that requires a gradient is refused rather than dropped."""
+    X, mask = _points(n, d, seed=d)
+    grids = ski.choose_grid(X, ratio=ratio)
+    idx, wgt = ski.build_interp(X, grids, mask)
+    G = int(np.prod([len(g) for g in grids]))
+    idx_t, wgt_t = _t(idx, torch.int64), _t(wgt)
+    lay = gk.interp_layout(idx_t, wgt_t, G)
+    assert lay.rowptr.dtype == lay.src.dtype == torch.int32
+    assert int(lay.rowptr[-1]) == idx.size and lay.G == G and lay.n == n
+    counts = lay.rowptr.diff()
+    assert (counts == 0).sum() > G // 3 and counts.max() > 2
+    v = _t(np.random.RandomState(b).randn(b, n))
+    got = gk.interp_adjoint(lay, v)
+    ref = _dense_w(idx, wgt, G).T @ v.numpy().T
+    assert got.shape == (G, b)
+    _close(got.numpy(), ref, 1e-14)
+    assert (got[counts == 0] == 0).all()
+    old = v.new_zeros((G, b)).index_add_(
+        0, idx_t.reshape(-1),
+        (wgt_t[:, :, None] * v.mT[:, None, :]).reshape(idx.size, b))
+    assert torch.equal(got, old)
+    with pytest.raises(ValueError, match="gradient"):
+        gk.interp_adjoint(lay, v.clone().requires_grad_(True))
+    with torch.no_grad():
+        gk.interp_adjoint(lay, v.clone().requires_grad_(True))
+
+
+def _dense_rank0_mean(eng, u, y, mask, bounds, jitter, Xt):
+    """The SKI mean w_*^T K_UU W^T (W K_UU W^T + noise I)^-1 yc by a dense
+    solve, in the engine's sorted row order."""
+    p = _constrain_task(u, bounds)
+    factors = ski.grid_kernel_factors(
+        "RBF", {"lengthscale": p["lengthscale"], "variance": p["variance"]},
+        eng._grids)
+    K = factors[0]
+    for f in factors[1:]:
+        K = torch.kron(K, f)
+    G = K.shape[0]
+    W = _t(_dense_w(eng._idx.numpy(), eng._wgt.numpy(), G))
+    A = W @ K @ W.mT + (p["noise"] + jitter) * torch.eye(W.shape[0],
+                                                          dtype=W.dtype)
+    yc = (y[eng._perm] - p["mean"]) * mask[eng._perm]
+    alpha = torch.linalg.solve(A, yc)
+    t_idx, t_wgt = ski.build_interp(Xt, eng.grids_np)
+    Wt = _t(_dense_w(t_idx, t_wgt, G))
+    return (Wt @ (K @ (W.mT @ alpha)) + p["mean"]).numpy()
+
+
+def test_rank0_predict_mean_matches_a_dense_solve(cube_runs):
+    """At precond_rank 0 the cube's predict-time CG runs to its tolerance
+    (not the training cap): its mean equals the dense solve of W K_UU W^T
+    + noise I to rtol 1e-8 at the default cg_iterations."""
+    pm = cube_runs["pm"]
+    eng = pm._ski_engine
+    assert eng.cg_iters == 64
+    rank = eng.precond_rank
+    eng.precond_rank = 0
+    try:
+        u = {k: v[0] for k, v in pm.u.items()}
+        mean, _ = eng.predict(u, pm._yd, pm._maskd, pm._bounds(), pm.jitter,
+                              pm.Xtest)
+    finally:
+        eng.precond_rank = rank
+    ref = _dense_rank0_mean(eng, u, pm._yd, pm._maskd, pm._bounds(),
+                            pm.jitter, pm.Xtest)
+    assert 0 < eng.last_predict_cg_iters < ski.PREDICT_CG_ITERS
+    _close(mean.numpy(), ref, 1e-8)
+
+
+def test_rank0_predict_solve_runs_past_the_training_cap():
+    """Scattered 2D points at noise 1e-3: the unpreconditioned predict
+    solve needs far more than the training cap of 64 iterations, takes
+    them under PREDICT_CG_ITERS, and its mean equals the dense solve to
+    rtol 1e-8, while a solve stopped at 64 iterations is far from it."""
+    rng = np.random.RandomState(4)
+    n = 300
+    X = rng.rand(n, 2) * 10.0
+    y = _t(np.sin(X[:, 0] / 2.0) * np.cos(X[:, 1] / 3.0))
+    mask = _t(np.ones(n))
+    eng = ski_model.SKIEngine("RBF", X, np.ones(n), ski.choose_grid(X),
+                              torch.float64, "cpu", precond_rank=0, seed=0)
+    assert eng.cg_iters == 64
+    bounds = {"ls_lo": _t(np.zeros(2)), "ls_hi": _t(np.full(2, 10.0))}
+    from gpim_tpu_torch.kernels.transforms import (interval_inverse,
+                                                   positive_inverse)
+    u = {"lengthscale": interval_inverse(_t([2.0, 2.0]), bounds["ls_lo"],
+                                         bounds["ls_hi"]),
+         "outputscale": positive_inverse(_t(1.0)),
+         "noise": positive_inverse(_t(1e-3)), "mean": _t(0.1)}
+    Xt = X[:40] + 0.05
+    mean, var = eng.predict(u, y, mask, bounds, 1e-6, Xt)
+    assert 64 < eng.last_predict_cg_iters < ski.PREDICT_CG_ITERS
+    ref = _dense_rank0_mean(eng, u, y, mask, bounds, 1e-6, Xt)
+    _close(mean.numpy(), ref, 1e-8)
+    assert np.isfinite(var.numpy()).all() and (var.numpy() > 0).all()
+    short = ski.PREDICT_CG_ITERS
+    try:
+        ski.PREDICT_CG_ITERS = 64
+        capped, _ = eng.predict(u, y, mask, bounds, 1e-6, Xt)
+    finally:
+        ski.PREDICT_CG_ITERS = short
+    assert np.abs(capped.numpy() - ref).max() > 1e-6 * np.abs(ref).max()

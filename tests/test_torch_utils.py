@@ -86,6 +86,29 @@ GRID_CASES = {
 }
 
 
+def test_full_grid_extent_non_divisible_span():
+    """tests/test_review_fixes.py's fix on the port: extent spans that do
+    not divide the shape (larger and smaller than it) give axes of the
+    shape's sizes, and the sparse grid stays consistent with the full
+    one; the same arrays as gpim_tpu's."""
+    R = np.zeros((50, 50))
+    X = g.get_full_grid(R, extent=[[0, 100], [0, 100]])
+    assert X.shape == (2, 50, 50)
+    assert np.isclose(X[0].min(), 0) and X[0].max() < 100
+    X2 = g.get_full_grid(R, extent=[[0, 30], [0, 30]])
+    assert X2.shape == (2, 50, 50)
+    Rn = R.copy()
+    Rn[10:20, 10:20] = np.nan
+    Xs = g.get_sparse_grid(Rn, extent=[[0, 30], [0, 30]])
+    assert Xs.shape == (2, 50, 50)
+    assert np.isnan(Xs[0][10, 10]) and not np.isnan(Xs[0][0, 0])
+    for got, ref in ((X, jg.get_full_grid(R, extent=[[0, 100], [0, 100]])),
+                     (X2, jg.get_full_grid(R, extent=[[0, 30], [0, 30]])),
+                     (Xs, jg.get_sparse_grid(Rn, extent=[[0, 30],
+                                                         [0, 30]]))):
+        _same(got, ref)
+
+
 @pytest.mark.parametrize("case", sorted(GRID_CASES))
 def test_gridutils_equal_gpim_tpu(case):
     _same(GRID_CASES[case](g), GRID_CASES[case](jg))
