@@ -32,12 +32,17 @@ its final line):
              padded points on 36^3 cells; ski_offlattice128x128x64:
              314,624 on 70^3) with the block widths their paths give it (b
              = 9 in training, 1 in predict, 100 for the rank-0 Lanczos
-             basis), normalized by the largest sum of |w v| over a cell;
+             basis), normalized by the largest sum of |w v| over a cell,
+             and bit for bit against its plain version run on the CPU in
+             the same dtype (but at the 1M row's b = 100);
              float32 device time per call of each kernel, its plain version
-             and (K1) torch.cdist, (K4) the index_add_ it replaced, beside
-             the kernel's bound: K2, K3 and K4 from a warm loop of launches
-             (_time_ms; K4 also from a CUDA graph), K1 from a CUDA graph of
-             calls (_time_graph_ms);
+             and (K1) torch.cdist, (K4, at every width) the index_add_ it
+             replaced, beside the kernel's bound: K2, K3 and K4 from a warm
+             loop of launches (_time_ms; K4 also from a CUDA graph), K1
+             from a CUDA graph of calls (_time_graph_ms); at the 1M row's
+             training block (b = 9) every piece of the off-lattice operator
+             (K4, the mode products, the gather W step by step, the noise
+             term, the whole) by warm loops, the gather beside its bound;
              the batched kernels at the multi-output eels64 shapes (T = 64
              tasks, n = 2048: K2, K3, and K1 on one 64 x 2048 x 2048
              predict chunk), and at one task-sharded rank's share of them
@@ -515,7 +520,7 @@ def phase_build():
     for line in res.log.splitlines():
         if "Function properties for" in line:
             name = re.sub(r"^.*?\d+(?=(sqdist|masked_system|rbf_bwd|"
-                          r"interp_adjoint)_kernel)", "",
+                          r"interp_adjoint(_runs)?)_kernel)", "",
                           line.split(" for ", 1)[1].strip())
         elif "spill" in line:
             spill = line.strip()
@@ -772,9 +777,12 @@ def _interp_adjoint_cases(dname, dtype, timed):
     """K4 against its plain version (in float64) at each off-lattice row's
     shape and at the block widths its paths give it (9: the training CG
     block; 1: the predict solve and mean; 100: the rank-0 Lanczos basis);
-    two launches bit-equal; at b = 9 in float32 timed beside its bound,
-    its plain version and the index_add_ it replaced. Returns the records
-    by row."""
+    two launches bit-equal, and bit-equal to the plain version run on the
+    CPU in the same dtype (K4 sums in its order and rounding; left out at
+    the 1M row's b = 100, 2 GB of rows in float64); in float32 each width
+    timed beside its bound, its plain version and the index_add_ it
+    replaced, and at the 1M row's b = 9 the operator's other pieces
+    (:func:`_interp_operator_pieces`). Returns the records by row."""
     import torch
     from gpim_tpu_torch.ops import gram_kernels as gk
     out = {}
@@ -784,6 +792,8 @@ def _interp_adjoint_cases(dname, dtype, timed):
         d = S.bit_length() - 1
         lay64 = lay._replace(wgt=lay.wgt.double())
         abs64 = lay64._replace(wgt=lay64.wgt.abs())
+        lay_cpu = gk.InterpLayout(lay.rowptr.cpu(), lay.src.cpu(),
+                                  lay.wgt.cpu(), n, lay.G)
         recs = {}
         for b in (9, 1, 100):
             v = torch.randn(b, n, dtype=dtype, device="cuda")
@@ -795,11 +805,25 @@ def _interp_adjoint_cases(dname, dtype, timed):
             if not torch.equal(got, again):
                 raise AssertionError("interp_adjoint: two launches differ")
             err, nerr = _norm_err(got, ref, scale)
-            log("[kernels]   interp_adjoint %s n = %d, G = %d, b = %d"
-                % (row, n, lay.G, b))
+            kernel = ("runs" if lay.offsets and lay.G * b
+                      >= gk._RUNS_MIN_OUTPUTS else "csr")
+            log("[kernels]   interp_adjoint %s n = %d, G = %d, b = %d (%s "
+                "kernel)" % (row, n, lay.G, b, kernel))
             _check("interp_adjoint", dname, err, nerr)
-            rec = {"err": err, "shape": [n, d, lay.G, b]}
-            if timed and b == 9:
+            rec = {"err": err, "shape": [n, d, lay.G, b], "kernel": kernel}
+            if b < 100 or n < 100000:
+                cpu = gk.interp_adjoint_plain(lay_cpu, v.cpu())
+                rec["bit_equal_cpu"] = torch.equal(got.cpu(), cpu)
+                log("[kernels]   interp_adjoint %s b = %d: bit-equal to the "
+                    "plain version on the CPU: %s"
+                    % (row, b, rec["bit_equal_cpu"]))
+                if not rec["bit_equal_cpu"]:
+                    raise AssertionError(
+                        "interp_adjoint: differs from the plain version on "
+                        "the CPU (largest gap %.3e)"
+                        % (got.cpu() - cpu).abs().max().item())
+                del cpu
+            if timed:
                 flat = eng._idx.reshape(-1)
                 wgt = eng._wgt
                 rec["ms"] = _time_ms(lambda: gk.interp_adjoint(lay, v))
@@ -815,11 +839,61 @@ def _interp_adjoint_cases(dname, dtype, timed):
                         .reshape(n * S, b)))
                 rec["bound"] = bound("interp_adjoint", n, d, m=lay.G,
                                      dtype_name=dname, batch=b)
+                if b == 9 and n > 100000:
+                    rec["operator"] = _interp_operator_pieces(eng, v)
             recs["b%d" % b] = rec
             del v, got, again, ref
         out[row] = recs
-        del eng, lay, lay64, abs64
+        del eng, lay, lay64, abs64, lay_cpu
         torch.cuda.empty_cache()
+    return out
+
+
+def _interp_operator_pieces(eng, v):
+    """Float32 device ms a call of each piece of the off-lattice operator
+    W K_UU W^T v + noise v (``ops/ski.py`` ``make_interp_mvm``) on the
+    block ``v`` (b, n), warm loops: W^T (K4), the d mode products, the
+    gather W (``_interp_apply``: ``index_select`` of the 2^d corners'
+    rows, the weighting, the sum over corners) with each of its three
+    steps alone, the noise term and the whole operator. The gather's bound:
+    it reads the (G, b) block, the int64 corner indices and the weights and
+    writes (b, n), over the memory rate."""
+    import torch
+    from gpim_tpu_torch.ops import gram_kernels as gk
+    from gpim_tpu_torch.ops import ski
+    n, S = eng._idx.shape
+    b, G = v.shape[0], eng._layout.G
+    item = v.element_size()
+    factors = ski.grid_kernel_factors(
+        "RBF", {"lengthscale": torch.tensor(MGRID_LS, device="cuda",
+                                            dtype=v.dtype),
+                "variance": torch.tensor(1.0, device="cuda",
+                                         dtype=v.dtype)}, eng._grids)
+    gshape = tuple(eng.grid_shape) + (b,)
+    lay, idx, wgt = eng._layout, eng._idx, eng._wgt
+    flat = idx.reshape(-1)
+    t = ski.modeprod(factors, gk.interp_adjoint(lay, v).reshape(gshape)) \
+        .reshape(G, b)
+    rows = t.index_select(0, flat)
+    prods = rows.reshape(n, S, b) * wgt[:, :, None]
+    summed = prods.sum(1)
+    mvm = ski.make_interp_mvm(idx, wgt, eng.grid_shape, lay)
+    noise = 1e-3
+    out = {"interp_adjoint_ms": _time_ms(lambda: gk.interp_adjoint(lay, v)),
+           "modeprod_ms": _time_ms(
+               lambda: ski.modeprod(factors, t.reshape(gshape))),
+           "gather_ms": _time_ms(lambda: ski._interp_apply(idx, wgt, t)),
+           "gather_index_select_ms": _time_ms(lambda: t.index_select(0, flat)),
+           "gather_weight_ms": _time_ms(
+               lambda: rows.reshape(n, S, b) * wgt[:, :, None]),
+           "gather_sum_ms": _time_ms(lambda: prods.sum(1)),
+           "noise_add_ms": _time_ms(lambda: summed.mT + noise * v),
+           "operator_ms": _time_ms(lambda: mvm(factors, noise, v), 20)}
+    out["gather_bound_ms"] = ((G * b + n * S + b * n) * item + n * S * 8) \
+        / PEAK_BYTES_PER_S * 1e3
+    log("[kernels] off-lattice operator at n = %d, G = %d, b = %d, float32, "
+        "ms a call: %s" % (n, G, b, ", ".join(
+            "%s %.4f" % (k[:-3], x) for k, x in out.items())))
     return out
 
 
@@ -1203,10 +1277,14 @@ def phase_kernels(R, X, X_full, vfe, eels64, ckpfm):
                "graph" if "loop_ms" in r else "warm loop", reps))
     for name, r in report["float32"].items():
         show(name, r)
-    for row, r in report["float32"]["interp_adjoint"]["ski_shapes"].items():
-        show("interp_adjoint " + row, r["b9"])
-        log("[kernels] interp_adjoint %s b = 9: %.4f ms by a CUDA graph of "
-            "%d launches" % (row, r["b9"]["graph_ms"], TIMING_REPS))
+    for row, recs in report["float32"]["interp_adjoint"]["ski_shapes"] \
+            .items():
+        for key, r in recs.items():
+            show("interp_adjoint %s %s" % (row, key), r)
+            log("[kernels] interp_adjoint %s %s: %.4f ms by a CUDA graph of "
+                "%d launches, %.0f%% of bound" % (
+                    row, key, r["graph_ms"], TIMING_REPS,
+                    100 * r["bound"][0] / r["graph_ms"]))
     for label, r in report["float32"]["sqdist"]["vfe_shapes"].items():
         show("sqdist VFE " + label, r)
     for label, r in report["float32"]["sqdist"]["kron_shapes"].items():
@@ -3596,14 +3674,16 @@ def kernel_records(kreport, paths):
         if name == "interp_adjoint":
             out[-1]["graph_ms"] = r["graph_ms"]
             out[-1]["ski_shapes"] = {
-                row: {"b%s" % k[1:]: {
-                    "shape": v["shape"], "max_abs_err": v["err"],
-                    **({} if "ms" not in v else {
-                        "ms": v["ms"], "graph_ms": v["graph_ms"],
-                        "plain_ms": v["plain_ms"],
-                        "library_ms": v["library_ms"],
-                        "bound_ms": v["bound"][0], "bound_by": v["bound"][1],
-                        "bound_share": v["bound"][0] / v["ms"]})}
+                row: {k: {
+                    "shape": v["shape"], "kernel": v["kernel"],
+                    "max_abs_err": v["err"],
+                    "bit_equal_cpu": v.get("bit_equal_cpu"),
+                    "ms": v["ms"], "graph_ms": v["graph_ms"],
+                    "plain_ms": v["plain_ms"], "library_ms": v["library_ms"],
+                    "bound_ms": v["bound"][0], "bound_by": v["bound"][1],
+                    "bound_share": v["bound"][0] / v["ms"],
+                    **({"operator": v["operator"]} if "operator" in v
+                       else {})}
                     for k, v in recs.items()}
                 for row, recs in r["ski_shapes"].items()}
             continue

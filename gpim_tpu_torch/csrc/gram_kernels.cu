@@ -728,22 +728,51 @@ int launch_rbf_bwd(const T* Ainv, const T* Kt, const T* alpha, const T* mask,
 // index_add_'s float atomics add in no fixed order on the card, so two runs
 // of one training differed. The (point, corner) entries come sorted by cell
 // once a data set (CSR: rowptr, and each entry's point src and weight w),
-// and one thread computes one output (cell g, column c) as
+// and each output (cell g, column c) is
 //
 //   out[g, c] = sum_{k = rowptr[g]}^{rowptr[g + 1] - 1} w[k] v[c, src[k]]
 //
-// in increasing k: no atomics and one answer in every run. Each product and
-// each sum is rounded on its own (__fmul_rn/__fadd_rn, no FMA), as the
-// plain version's index_add_ rounds them. Bound by bytes (the block v, the
-// entries, the row pointers, the (G, b) output: ~45 MB at the 1M cube, b =
-// 9). Threads are (cell, column) pairs with the column fastest: the b
-// threads of a cell read each entry's w and src together (one broadcast),
-// a warp stores contiguous output, and neighbouring cells read neighbouring
-// points, which come sorted by their lower corner. An empty cell writes 0.
-// The same kernel is the gradient of the operator's gather W in the SKI
-// loss's backward.
+// summed by one thread from 0 in increasing k, each product and each sum
+// rounded on its own (__fmul_rn/__fadd_rn, no FMA): the order and the
+// rounding of the plain version's index_add_ on the CPU, so the card gives
+// its bits, in every run. Bound by bytes.
+//
+// Two kernels compute it. What costs is reading v at the entries' points:
+// a warp of (cell, column) threads touches a line of v for each of the b
+// rows in every load.
+//
+// interp_adjoint_runs_kernel, for the layout of points sorted by their
+// lower corner with every corner at a fixed offset from it (the SKI
+// engine's; lcptr[g] is the first point whose lower corner is >= g). Cell
+// g's entries are then its 2^d corner groups: for each corner offset o,
+// largest first, the points lcptr[g - o] to lcptr[g - o + 1] - 1, which is
+// their CSR order. A warp owns 32 consecutive cells, a lane each, and CG
+// columns. For each corner the 32 cells' points are one run of
+// consecutive points; the warp reads it 32 points at a time, coalesced:
+// the weights of that corner (wrun, the weights corner by corner) and CG
+// rows of v, and each lane forms its point's products. Each lane then
+// takes, in order, the products of its own cell's points in those 32 from
+// the lanes that hold them (a shuffle a column) and adds them; the next
+// chunk's loads are in flight meanwhile. Nothing else is read: no src, no
+// rowptr (~35 MB at the 1M cube, b = 9). The outputs go out through shared
+// memory, one contiguous store a warp.
+//
+// interp_adjoint_kernel, for any other layout and for blocks too small
+// for the runs kernel to fill the card (the wrapper's choice): one thread
+// an output, the column fastest, reading its terms' weights, points and v
+// from device memory.
+//
+// An empty cell writes 0. The same kernels are the gradient of the
+// operator's gather W in the SKI loss's backward.
 // ---------------------------------------------------------------------------
 constexpr int kAdjThreads = 256;
+constexpr int kRunWarps = 4;   // warps a block of the runs kernel
+constexpr int kAdjRuns = 8;    // most corners the runs kernel takes (d <= 3)
+
+// the corner offsets, largest first, passed by value
+struct AdjOffsets {
+  int o[kAdjRuns];
+};
 
 __device__ __forceinline__ float mul_rn(float a, float b) {
   return __fmul_rn(a, b);
@@ -756,6 +785,131 @@ __device__ __forceinline__ float add_rn(float a, float b) {
 }
 __device__ __forceinline__ double add_rn(double a, double b) {
   return __dadd_rn(a, b);
+}
+
+// a[i] of a register array, i known only at run time
+__device__ __forceinline__ int pick(const int (&a)[kAdjRuns], int i) {
+  int out = a[0];
+#pragma unroll
+  for (int q = 1; q < kAdjRuns; ++q) {
+    if (q == i) out = a[q];
+  }
+  return out;
+}
+
+// the chunk after (r, base): 32 points on, or the next corner's run that
+// holds points (base >= end when none is left); lo, last as below
+__device__ __forceinline__ void next_chunk(const int (&lo)[kAdjRuns],
+                                           const int (&last)[kAdjRuns],
+                                           int runs, int& r, int& base,
+                                           int& end) {
+  base += 32;
+  while (base >= end && r + 1 < runs) {
+    ++r;
+    base = __shfl_sync(0xffffffffu, pick(lo, r), 0);
+    end = __shfl_sync(0xffffffffu, pick(last, r), 31);
+  }
+}
+
+// a chunk's weight and CG values of v at this lane's point
+template <typename T, int CG>
+__device__ __forceinline__ void load_chunk(const T* __restrict__ wrun,
+                                           const T* __restrict__ vt,
+                                           int64_t n, int nc, int r,
+                                           int base, int end, int lane,
+                                           T& wp, T (&x)[CG]) {
+  const int p = base + lane;
+  wp = p < end ? wrun[static_cast<int64_t>(r) * n + p] : T(0);
+#pragma unroll
+  for (int c = 0; c < CG; ++c) {
+    x[c] = p < end && c < nc ? vt[static_cast<int64_t>(c) * n + p] : T(0);
+  }
+}
+
+template <typename T, int CG>
+__global__ void __launch_bounds__(kRunWarps * 32)
+    interp_adjoint_runs_kernel(const int* __restrict__ lcptr,
+                               const T* __restrict__ wrun,
+                               const T* __restrict__ v, AdjOffsets offs,
+                               int runs, T* __restrict__ out, int64_t G,
+                               int64_t n, int b) {
+  __shared__ T stage[kRunWarps][32 * CG];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t g0 =
+      (static_cast<int64_t>(blockIdx.x) * kRunWarps + warp) * 32;
+  if (g0 >= G) return;
+  const int c0 = blockIdx.y * CG;
+  const int nc = min(CG, b - c0);
+  const int64_t g1 = g0 + 32 < G ? g0 + 32 : G;
+  const int64_t g = g0 + lane < g1 ? g0 + lane : g1;  // past g1: no points
+  const T* __restrict__ vt = v + static_cast<int64_t>(c0) * n;
+  // every corner's pointers at once: this lane's points of corner r are
+  // lo[r] to (lane + 1's lo[r]) - 1, lane 31's end at last[r]
+  int lo[kAdjRuns] = {}, last[kAdjRuns] = {};
+#pragma unroll
+  for (int r = 0; r < kAdjRuns; ++r) {
+    if (r < runs) {
+      const int64_t a = g - offs.o[r], z = g1 - offs.o[r];
+      lo[r] = lcptr[a < 0 ? 0 : a];
+      if (lane == 31) last[r] = lcptr[z < 0 ? 0 : z];
+    }
+  }
+  T acc[CG];
+#pragma unroll
+  for (int c = 0; c < CG; ++c) acc[c] = T(0);
+  // the chunks in entry order; the next one's weight and values load
+  // while this one's products are added
+  int r = -1, base = -32, end = 0;
+  next_chunk(lo, last, runs, r, base, end);
+  T wp, x[CG];
+  load_chunk<T, CG>(wrun, vt, n, nc, r, base, end, lane, wp, x);
+  while (base < end) {
+    int r2 = r, base2 = base, end2 = end;
+    next_chunk(lo, last, runs, r2, base2, end2);
+    T wp2, x2[CG];
+    load_chunk<T, CG>(wrun, vt, n, nc, r2, base2, end2, lane, wp2, x2);
+    T prod[CG];
+#pragma unroll
+    for (int c = 0; c < CG; ++c) prod[c] = mul_rn(wp, x[c]);
+    // this lane's points of the chunk are held by lanes first - base on
+    const int mine = pick(lo, r);
+    int stop = __shfl_down_sync(0xffffffffu, mine, 1);
+    if (lane == 31) stop = pick(last, r);
+    const int first = max(mine, base);
+    const int count = max(min(stop, base + 32) - first, 0);
+    const int most = __reduce_max_sync(0xffffffffu, count);
+    for (int j = 0; j < most; ++j) {
+      const int from = (first - base + j) & 31;
+#pragma unroll
+      for (int c = 0; c < CG; ++c) {
+        const T t = __shfl_sync(0xffffffffu, prod[c], from);
+        if (j < count) acc[c] = add_rn(acc[c], t);
+      }
+    }
+    r = r2;
+    base = base2;
+    end = end2;
+    wp = wp2;
+#pragma unroll
+    for (int c = 0; c < CG; ++c) x[c] = x2[c];
+  }
+  const int ncells = static_cast<int>(g1 - g0);
+  T* __restrict__ ot = out + g0 * b + c0;
+  if (nc == b) {  // the warp's outputs are one contiguous block
+    T* st = stage[warp];
+#pragma unroll
+    for (int c = 0; c < CG; ++c) {
+      if (c < nc) st[lane * nc + c] = acc[c];
+    }
+    __syncwarp();
+    for (int i = lane; i < ncells * nc; i += 32) ot[i] = st[i];
+  } else if (lane < ncells) {
+#pragma unroll
+    for (int c = 0; c < CG; ++c) {
+      if (c < nc) ot[static_cast<int64_t>(lane) * b + c] = acc[c];
+    }
+  }
 }
 
 template <typename T>
@@ -778,18 +932,53 @@ __global__ void __launch_bounds__(kAdjThreads)
   out[t] = acc;
 }
 
+template <typename T, int CG>
+int launch_interp_runs(const int* lcptr, const T* wrun, const T* v,
+                       const AdjOffsets& offs, int runs, T* out, int64_t G,
+                       int64_t n, int b, cudaStream_t stream) {
+  const int64_t blocks = (G + 32 * kRunWarps - 1) / (32 * kRunWarps);
+  const int64_t groups = (b + CG - 1) / CG;
+  if (blocks > 0x7fffffffLL || groups > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  interp_adjoint_runs_kernel<T, CG>
+      <<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(groups)),
+         kRunWarps * 32, 0, stream>>>(lcptr, wrun, v, offs, runs, out, G, n,
+                                      b);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_interp_adjoint(const int* rowptr, const int* src, const T* w,
-                          const T* v, T* out, int64_t G, int64_t n, int b,
-                          void* stream) {
-  if (G < 0 || n < 0 || b < 0) return static_cast<int>(cudaErrorInvalidValue);
+                          const T* v, const int* lcptr, const T* wrun,
+                          const int* offsets, int runs, T* out, int64_t G,
+                          int64_t n, int b, void* stream) {
+  if (G < 0 || n < 0 || b < 0 || runs < 0 || runs > kAdjRuns ||
+      (lcptr != nullptr) != (runs > 0) || (lcptr != nullptr && !wrun)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (G == 0 || b == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lcptr != nullptr) {
+    AdjOffsets offs = {};
+    for (int j = 0; j < runs; ++j) offs.o[j] = offsets[j];
+    // columns a warp: b itself up to 9, then 16 at a time
+    if (b == 1) return launch_interp_runs<T, 1>(lcptr, wrun, v, offs, runs,
+                                                out, G, n, b, s);
+    if (b == 2) return launch_interp_runs<T, 2>(lcptr, wrun, v, offs, runs,
+                                                out, G, n, b, s);
+    if (b <= 4) return launch_interp_runs<T, 4>(lcptr, wrun, v, offs, runs,
+                                                out, G, n, b, s);
+    if (b <= 9) return launch_interp_runs<T, 9>(lcptr, wrun, v, offs, runs,
+                                                out, G, n, b, s);
+    return launch_interp_runs<T, 16>(lcptr, wrun, v, offs, runs, out, G, n,
+                                     b, s);
+  }
   const int64_t total = G * b;
-  if (total == 0) return static_cast<int>(cudaGetLastError());
   const int64_t blocks = (total + kAdjThreads - 1) / kAdjThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   interp_adjoint_kernel<T><<<static_cast<unsigned>(blocks), kAdjThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      rowptr, src, w, v, out, total, n, b);
+                             s>>>(rowptr, src, w, v, out, total, n, b);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -859,19 +1048,27 @@ int gpim_rbf_bwd_reductions_f64(const double* Ainv, const double* Kt,
 }
 
 // K4: out (G, b) = W^T v for the batch-first block v (b, n), W in CSR form
-// by cell (rowptr (G + 1), and each entry's point src and weight w).
+// by cell (rowptr (G + 1), and each entry's point src and weight w). When
+// the points come sorted by their lower corner, also lcptr (G + 1), wrun
+// (2^d, n: the weights corner by corner, in the order of offs) and offs
+// (runs <= 8 corner offsets, largest first, in host memory); else null,
+// null, null and 0.
 int gpim_interp_adjoint_f32(const int* rowptr, const int* src, const float* w,
-                            const float* v, float* out, int64_t G, int64_t n,
-                            int b, void* stream) {
-  return launch_interp_adjoint<float>(rowptr, src, w, v, out, G, n, b,
-                                      stream);
+                            const float* v, const int* lcptr,
+                            const float* wrun, const int* offs, int runs,
+                            float* out, int64_t G, int64_t n, int b,
+                            void* stream) {
+  return launch_interp_adjoint<float>(rowptr, src, w, v, lcptr, wrun, offs,
+                                      runs, out, G, n, b, stream);
 }
 
 int gpim_interp_adjoint_f64(const int* rowptr, const int* src,
-                            const double* w, const double* v, double* out,
+                            const double* w, const double* v,
+                            const int* lcptr, const double* wrun,
+                            const int* offs, int runs, double* out,
                             int64_t G, int64_t n, int b, void* stream) {
-  return launch_interp_adjoint<double>(rowptr, src, w, v, out, G, n, b,
-                                       stream);
+  return launch_interp_adjoint<double>(rowptr, src, w, v, lcptr, wrun, offs,
+                                       runs, out, G, n, b, stream);
 }
 
 }  // extern "C"

@@ -42,7 +42,8 @@ _SIGNATURES = {
                            _INT, _P),
     "gpim_rbf_bwd_reductions": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I64, _INT, _INT, _P),
-    "gpim_interp_adjoint": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _P),
+    "gpim_interp_adjoint": (_P, _P, _P, _P, _P, _P, _P, _INT, _P, _I64,
+                            _I64, _INT, _P),
 }
 
 

@@ -69,10 +69,11 @@ def min_traffic(name, n, d, m=None, itemsize=4, batch=1):
     K1's column count, ``batch`` the number of tasks; the operands that the
     tasks share (the mask, K3's X) count once. For K4 (``interp_adjoint``)
     ``n`` is the points, ``d`` their dimension (2^d corners each), ``m``
-    the grid cells G and ``batch`` the block's columns b: it reads the
-    block, each entry's weight and int32 point and the int32 row pointers,
-    and writes the (G, b) block; a multiply and an add an entry and
-    column."""
+    the grid cells G and ``batch`` the block's columns b, on the layout of
+    points sorted by their lower corner (the SKI engine's): it reads the
+    block, each entry's weight (corner by corner) and the int32 corner
+    pointers, and writes the (G, b) block; a multiply and an add an entry
+    and column."""
     T = batch
     if name == "sqdist":
         return (T * (n * d + m * d) * itemsize, T * n * m * itemsize,
@@ -88,7 +89,7 @@ def min_traffic(name, n, d, m=None, itemsize=4, batch=1):
                 T * (2 + n + n * d) * itemsize, T * (2 * d + 6) * n * n)
     if name == "interp_adjoint":
         nnz = n * 2 ** d
-        return (T * n * itemsize + nnz * (itemsize + 4) + (m + 1) * 4,
+        return (T * n * itemsize + nnz * itemsize + (m + 1) * 4,
                 m * T * itemsize, 2 * nnz * T)
     raise ValueError(name)
 
@@ -444,18 +445,23 @@ rbf_bwd_reductions.launches = 0
 # indices_are_sorted). index_add_ on CUDA adds float atomics in no fixed
 # order, so two runs of one training differ. Here the (point, corner)
 # entries are sorted by their grid cell once a data set, stably (a CSR
-# layout, :func:`interp_layout`), and one thread sums one (cell, column)
-# output over its cell's entries in increasing entry order: no atomics, one
-# answer in every run, and the order in which index_add_ on the CPU adds.
-# Bound by bytes: it reads the block v, the sorted weights, the entries'
-# points and the row pointers once and writes the (G, b) block, ~45 MB at
-# the 1M off-lattice cube (n = 314624, G = 70^3, b = 9), against 2
-# operations an entry and column. The threads are (cell, column) pairs,
-# the column fastest: the b threads of a cell read each entry's weight and
-# point once between them (a broadcast), a cell's output row is one
-# contiguous store, and neighbouring cells read neighbouring points (the
-# points are sorted by their lower corner). Products and sums are rounded
-# one by one (no FMA), as the plain version rounds them. Not
+# layout, :func:`interp_layout`), and each (cell, column) output is one
+# thread's sum over its cell's entries in increasing entry order, each
+# product and sum rounded on its own (no FMA): no atomics, and the order
+# and rounding of index_add_ on the CPU, so the card gives the plain
+# version's bits on the CPU, in every run. Bound by bytes: on the SKI
+# engine's layout it reads the block v, the weights and the corner
+# pointers once and writes the (G, b) block, ~35 MB at the 1M off-lattice
+# cube (n = 314624, G = 70^3, b = 9), against 2 operations an entry and
+# column. When the points come sorted by their lower corner (the SKI
+# engine sorts them), each cell's entries are its 2^d corner groups of
+# consecutive points (``lcptr``, ``offsets``), and a warp of 32
+# consecutive cells reads each corner's run of points 32 at a time,
+# coalesced (its weights corner by corner, ``wrun``, and the rows of v);
+# each lane takes its cell's products from the lanes that formed them, in
+# entry order, by shuffles. It reads no src and no row pointers. Other
+# layouts, and blocks of fewer than _RUNS_MIN_OUTPUTS outputs (G b), take
+# one thread an output, reading each term from memory. Not
 # differentiable: the SKI loss's backward differentiates the operator in
 # its factors and noise, never in v, and the wrapper raises on a v that
 # requires a gradient rather than drop it. It is also the gradient of the
@@ -467,12 +473,49 @@ class InterpLayout(NamedTuple):
     """The interpolation weights W (n points, G cells) in CSR form by
     cell: cell g's entries are ``rowptr[g]`` to ``rowptr[g + 1] - 1``,
     entry k the weight ``wgt[k]`` of point ``src[k]``, in increasing
-    (point, corner) order within each cell."""
+    (point, corner) order within each cell. When the points come sorted by
+    their lower corner (corner 0) and every corner sits at a fixed offset
+    from it, as the SKI engine's do, ``lcptr[g]`` is the first point whose
+    lower corner is >= g, ``offsets`` the corners' offsets, largest first
+    (host ints), and ``wrun`` the weights corner by corner in that order
+    (2^d, n); cell g's entries are then, for each offset o, the points
+    ``lcptr[g - o]`` to ``lcptr[g - o + 1] - 1``, and K4 reads them by
+    runs of consecutive points. Otherwise the three are None."""
     rowptr: torch.Tensor     # (G + 1,) int32
     src: torch.Tensor        # (n 2^d,) int32
     wgt: torch.Tensor        # (n 2^d,) the weights, in entry order
     n: int
     G: int
+    lcptr: torch.Tensor = None    # (G + 1,) int32
+    wrun: torch.Tensor = None     # (2^d, n) the weights by corner
+    offsets: tuple = None         # 2^d ints, largest first
+
+
+_MAX_RUNS = 8       # corners K4 reads by runs of points (d <= 3)
+# G b from which K4 takes its runs kernel: below it the CSR kernel was the
+# faster on an H100 (tools/k4_design.py; PERF.md)
+_RUNS_MIN_OUTPUTS = 1 << 21
+
+
+def _corner_runs(idx, wgt, G):
+    """(lcptr, wrun, offsets) of :class:`InterpLayout` for the corner
+    indices and weights ``idx``, ``wgt`` (n, 2^d), or three Nones when the
+    points are not sorted by their lower corner, a corner is not at a fixed
+    offset from it, two corners share an offset (a cell's entries would
+    then interleave two runs) or there are more than 8 corners."""
+    n, S = idx.shape
+    if n == 0 or S > _MAX_RUNS:
+        return None, None, None
+    lc = idx[:, 0].long().contiguous()
+    offsets = idx[0].long() - lc[0]
+    if not bool(((idx - lc[:, None]) == offsets).all()
+                & (lc.diff() >= 0).all() & (offsets >= 0).all()) \
+            or len(set(offsets.tolist())) < S:
+        return None, None, None
+    order = torch.argsort(offsets, descending=True, stable=True)
+    cells = torch.arange(G + 1, device=idx.device)
+    return (torch.searchsorted(lc, cells).to(torch.int32),
+            wgt[:, order].mT.contiguous(), tuple(offsets[order].tolist()))
 
 
 def interp_layout(idx, wgt, G):
@@ -480,8 +523,9 @@ def interp_layout(idx, wgt, G):
     ``wgt`` (n, 2^d) of ``ski.build_interp`` on a grid of ``G`` cells, on
     their device: ``perm``, the stable argsort of ``idx``'s flat entries,
     gives each entry's point (``perm`` // 2^d) and weight; the row pointers
-    come from a count of the entries a cell. Built once a data set; reading
-    the count's length waits for the device once."""
+    come from a count of the entries a cell, and the corner runs from
+    :func:`_corner_runs`. Built once a data set; it waits for the device
+    a few times."""
     n, S = idx.shape
     if n * S >= 2 ** 31:
         raise ValueError("interp_layout: %d entries do not fit int32"
@@ -495,7 +539,7 @@ def interp_layout(idx, wgt, G):
     rowptr[1:] = counts.cumsum(0)
     src = torch.div(perm, S, rounding_mode="floor").to(torch.int32)
     return InterpLayout(rowptr, src, wgt.reshape(-1)[perm].contiguous(),
-                        n, G)
+                        n, G, *_corner_runs(idx, wgt, G))
 
 
 def interp_adjoint_plain(layout, v):
@@ -515,10 +559,10 @@ def interp_adjoint_plain(layout, v):
 def interp_adjoint(layout, v):
     """K4 wrapper: W^T v, (b, n) -> (G, b), for the
     :class:`InterpLayout` ``layout`` of W. On CUDA every output is one
-    thread's sum in a fixed order, so the result is the same in every run;
-    float32 agrees with the float64 :func:`interp_adjoint_plain` to about
-    1e-7 of the cell's sum of |w v| (a short f32 sum, each term rounded),
-    float64 to round-off."""
+    thread's sum in the plain version's order and rounding, so the result
+    is :func:`interp_adjoint_plain`'s on the CPU bit for bit, in every run;
+    float32 agrees with the float64 plain version to about 1e-7 of the
+    cell's sum of |w v| (a short f32 sum, each term rounded)."""
     if v.requires_grad and torch.is_grad_enabled():
         raise ValueError("interp_adjoint: v requires a gradient, which K4 "
                          "does not give; detach it")
@@ -528,15 +572,28 @@ def interp_adjoint(layout, v):
     if not v.is_cuda:
         return interp_adjoint_plain(layout, v)
     dtype = _check_cuda("interp_adjoint", (v, layout.wgt))
-    for t in (layout.rowptr, layout.src):
+    b = v.shape[0]
+    runs = layout.offsets or ()
+    if layout.G * b < _RUNS_MIN_OUTPUTS:
+        runs = ()
+    for t in (layout.rowptr, layout.src) + (
+            (layout.lcptr,) if runs else ()):
         if t.device != v.device or t.dtype != torch.int32 \
                 or not t.is_contiguous():
             raise ValueError("interp_adjoint: the layout's indices must be "
                              "contiguous int32 on %s" % v.device)
-    b = v.shape[0]
+    if runs:
+        _check_cuda("interp_adjoint", (v, layout.wrun))
+        if len(runs) > _MAX_RUNS \
+                or layout.wrun.shape != (len(runs), layout.n):
+            raise ValueError("interp_adjoint: the layout's corner runs are "
+                             "not (<= %d, n)" % _MAX_RUNS)
     out = torch.empty((layout.G, b), dtype=dtype, device=v.device)
     _launch("gpim_interp_adjoint", dtype, _ptr(layout.rowptr),
-            _ptr(layout.src), _ptr(layout.wgt), _ptr(v), _ptr(out),
+            _ptr(layout.src), _ptr(layout.wgt), _ptr(v),
+            _ptr(layout.lcptr) if runs else None,
+            _ptr(layout.wrun) if runs else None,
+            (ctypes.c_int * _MAX_RUNS)(*runs), len(runs), _ptr(out),
             layout.G, layout.n, b, _stream(v))
     interp_adjoint.launches += 1
     return out

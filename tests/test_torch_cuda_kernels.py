@@ -14,8 +14,9 @@ exact Kronecker route's one-feature shapes, with the Kronecker and spectral
 losses and gradients against the CPU path; K1 at the masked-lattice and
 off-lattice SKI routes' factor shapes, with their operators and losses
 against the CPU path; K4, the off-lattice interpolation adjoint, against
-its plain version on ragged grids with empty cells, bit-equal run to run,
-and launched by an off-lattice run(); the f32 predictive sd in the
+its plain version on ragged grids with empty cells, bit-equal run to run
+and to the plain version on the CPU (also where one cell's entries span
+chunks), and launched by an off-lattice run(); the f32 predictive sd in the
 cancellation regime. One test, of the bytes the kernels' bounds count,
 runs on the CPU.
 
@@ -230,14 +231,15 @@ def test_min_traffic_counts_each_byte_once():
     assert (read, written) == ((4096 + n) * d * f32, 4096 * n * f32)
     read8, written8, _ = gk.min_traffic("masked_system", n, d, itemsize=8)
     assert (read8, written8) == (2 * (n * d + n + 3) * f32, 2 * 301_989_888)
-    # K4 at the 1M off-lattice cube: v, the entries' weights and points,
-    # the row pointers, the (G, b) output; ~45 MB
+    # K4 at the 1M off-lattice cube, the SKI engine's layout: v, the
+    # weights corner by corner, the corner pointers, the (G, b) output;
+    # ~35 MB
     pts, G, b = 314624, 70 ** 3, 9
     read, written, ops = gk.min_traffic("interp_adjoint", pts, 3, m=G,
                                         batch=b)
-    assert read == (pts * b + 8 * pts * 2 + G + 1) * f32
+    assert read == (pts * b + 8 * pts + G + 1) * f32
     assert written == G * b * f32 and ops == 2 * 8 * pts * b
-    assert 45.0e6 < read + written < 45.5e6
+    assert 35.0e6 < read + written < 35.2e6
 
 
 @cuda
@@ -955,13 +957,20 @@ def test_predictive_sd_f32_small_noise_long_lengthscale(dev):
 TOL_K4 = {torch.float32: 1e-6, torch.float64: 1e-12}
 
 
-def _k4_problem(dev, dtype, d, n, ratio, seed=0):
+def _k4_problem(dev, dtype, d, n, ratio, seed=0, cluster=0, sort=False):
+    """W's layout for n random points (the first ``cluster`` of them in
+    one cell) on choose_grid's grid, on ``dev``; with ``sort`` the points
+    sorted by their lower corner, as the SKI engine sorts them."""
     from gpim_tpu_torch.ops import ski
     rng = np.random.RandomState(seed)
     X = rng.rand(n, d) * 10.0
+    X[:cluster] = 5.01 + rng.rand(cluster, d) * 0.01
     mask = (rng.rand(n) < 0.85).astype(float)
     grids = ski.choose_grid(X, ratio=ratio)
     idx, wgt = ski.build_interp(X, grids, mask)
+    if sort:
+        perm = np.argsort(idx[:, 0], kind="stable")
+        idx, wgt = idx[perm], wgt[perm]
     G = int(np.prod([len(g) for g in grids]))
     return gk.interp_layout(
         torch.as_tensor(idx, dtype=torch.int64, device=dev),
@@ -994,7 +1003,42 @@ def test_interp_adjoint_matches_plain(dev, dtype, b, d, n, ratio):
 
 
 @cuda
-def test_interp_adjoint_checks_its_operands(dev):
+@pytest.mark.parametrize("runs", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [1, 9, 100])
+@pytest.mark.parametrize("d, n, ratio, cluster, sort",
+                         [(2, 3000, 1.9, 0, False), (3, 5000, 1.25, 0, False),
+                          (2, 3000, 1.9, 0, True), (3, 5000, 1.25, 0, True),
+                          (2, 9000, 1.9, 6000, True)])
+def test_interp_adjoint_equals_the_cpu_plain_version_bit_for_bit(
+        dev, monkeypatch, runs, dtype, b, d, n, ratio, cluster, sort):
+    """K4 sums each cell in the plain version's order and rounding, so it
+    gives the plain version's bits on the CPU: on the ragged grids with
+    the points in any order (the CSR kernel) and sorted by their lower
+    corner (the runs kernel, a warp of cells reading 32 points of a run at
+    a time), and where one cell holds 6000 entries, so that its sum goes
+    on across ~190 such chunks of its runs. ``runs`` takes the runs kernel
+    at any size (else only from the wrapper's threshold on)."""
+    monkeypatch.setattr(gk, "_RUNS_MIN_OUTPUTS", 0 if runs else 2 ** 62)
+    lay = _k4_problem(dev, dtype, d, n, ratio, cluster=cluster, sort=sort)
+    assert (lay.lcptr is not None) == sort
+    if cluster:
+        assert int(lay.rowptr.diff().max()) > 4096
+    v = _rand((b, n), dtype, dev, seed=b) - 0.5
+    out = gk.interp_adjoint(lay, v)
+    again = gk.interp_adjoint(lay, v)
+    cpu = gk.interp_adjoint_plain(
+        gk.InterpLayout(lay.rowptr.cpu(), lay.src.cpu(), lay.wgt.cpu(),
+                        lay.n, lay.G), v.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert torch.equal(out.cpu(), cpu)
+
+
+@cuda
+def test_interp_adjoint_checks_its_operands(dev, monkeypatch):
+    """Wrong shapes, dtypes and index types raise, for both layouts."""
+    monkeypatch.setattr(gk, "_RUNS_MIN_OUTPUTS", 0)
     lay = _k4_problem(dev, torch.float32, 2, 200, 1.5)
     v = torch.rand(3, 200, device=dev)
     with pytest.raises(ValueError, match="gradient"):
@@ -1007,6 +1051,13 @@ def test_interp_adjoint_checks_its_operands(dev):
         gk.interp_adjoint(lay, v.double())
     with pytest.raises(ValueError):
         gk.interp_adjoint(lay._replace(src=lay.src.long()), v)
+    sorted_lay = _k4_problem(dev, torch.float32, 2, 200, 1.5, sort=True)
+    with pytest.raises(ValueError):
+        gk.interp_adjoint(sorted_lay._replace(
+            lcptr=sorted_lay.lcptr.long()), v)
+    with pytest.raises(ValueError):
+        gk.interp_adjoint(sorted_lay._replace(
+            wrun=sorted_lay.wrun[:, 1:].contiguous()), v)
 
 
 @cuda

@@ -512,6 +512,72 @@ def test_interp_adjoint_plain_matches_a_dense_adjoint(d, n, ratio, b):
         gk.interp_adjoint(lay, v.clone().requires_grad_(True))
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("b", [1, 9, 100])
+@pytest.mark.parametrize("d, n, ratio, cluster, sort",
+                         [(2, 150, 1.7, 0, False), (3, 90, 1.3, 0, False),
+                          (2, 150, 1.7, 0, True), (3, 90, 1.3, 0, True),
+                          (2, 400, 1.7, 300, True)])
+def test_interp_adjoint_plain_sums_each_cell_in_entry_order(
+        d, n, ratio, cluster, sort, b, dtype):
+    """The order and rounding K4 reproduces on the card: the layout is a
+    numpy recount of the corner indices (row pointers from a bincount,
+    entries in a stable sort by cell; with the points sorted by their
+    lower corner, as the SKI engine sorts them, each cell's first point
+    of that corner, the corners' offsets, largest first, and the weights
+    corner by corner in that order, else none of the three),
+    and the plain version equals, bit for bit, a numpy sum over each cell's
+    entries in increasing entry order from 0, each product and each sum
+    rounded in ``dtype``; on ragged grids and on one where ``cluster``
+    points share a cell."""
+    X, mask = _points(n, d, seed=d + cluster)
+    X[:cluster] = 5.01 + np.random.RandomState(1).rand(cluster, d) * 0.01
+    grids = ski.choose_grid(X, ratio=ratio)
+    idx, wgt = ski.build_interp(X, grids, mask)
+    if sort:
+        perm = np.argsort(idx[:, 0], kind="stable")
+        idx, wgt, X = idx[perm], wgt[perm], X[perm]
+    wgt = wgt.astype(dtype)
+    G = int(np.prod([len(g) for g in grids]))
+    lay = gk.interp_layout(_t(idx, torch.int64), torch.as_tensor(wgt), G)
+    counts = np.bincount(idx.reshape(-1), minlength=G)
+    order = np.argsort(idx.reshape(-1), kind="stable")
+    assert_array_equal(lay.rowptr.numpy(), np.r_[0, np.cumsum(counts)])
+    assert_array_equal(lay.src.numpy(), order // idx.shape[1])
+    assert_array_equal(lay.wgt.numpy(), wgt.reshape(-1)[order])
+    assert counts.max() >= max(cluster, 3)
+    if sort:
+        lower = np.bincount(idx[:, 0], minlength=G)
+        assert_array_equal(lay.lcptr.numpy(), np.r_[0, np.cumsum(lower)])
+        order = np.argsort(idx[0] - idx[0, 0])[::-1]
+        assert lay.offsets == tuple(idx[0, order] - idx[0, 0])
+        assert lay.lcptr.dtype == torch.int32
+        assert_array_equal(lay.wrun.numpy(), wgt[:, order].T)
+    else:
+        assert lay.lcptr is None and lay.wrun is None \
+            and lay.offsets is None
+    v = np.random.RandomState(b).randn(b, n).astype(dtype)
+    prods = lay.wgt.numpy()[:, None] * v.T[lay.src.numpy()]
+    ref = np.zeros((G, b), dtype)
+    start = lay.rowptr.numpy()[:-1]
+    for j in range(counts.max()):
+        cells = np.nonzero(counts > j)[0]
+        ref[cells] = ref[cells] + prods[start[cells] + j]
+    got = gk.interp_adjoint(lay, torch.as_tensor(v))
+    assert got.dtype == torch.from_numpy(ref).dtype
+    assert_array_equal(got.numpy(), ref)
+
+
+def test_interp_layout_takes_no_corner_runs_when_corners_share_an_offset():
+    """Points sorted by their lower corner, but on a grid with an axis of
+    one point two corners land at one offset, so a cell's entries would
+    interleave two runs: the layout keeps only its CSR form."""
+    idx = torch.tensor([[0, 1, 1, 2], [1, 2, 2, 3]])
+    lay = gk.interp_layout(idx, torch.rand(2, 4, dtype=torch.float64), 4)
+    assert lay.lcptr is None and lay.wrun is None and lay.offsets is None
+    assert_array_equal(lay.rowptr.numpy(), [0, 1, 4, 7, 8])
+
+
 def _dense_rank0_mean(eng, u, y, mask, bounds, jitter, Xt):
     """The SKI mean w_*^T K_UU W^T (W K_UU W^T + noise I)^-1 yc by a dense
     solve, in the engine's sorted row order."""
