@@ -211,10 +211,25 @@ its final line):
              script's quality number, launches against the counts each
              run implies; eels and the BO, which gate on nothing, must give
              finite output of the expected shape.
-15. trace   - utils.profiling.trace around a warm flagship run of
-             PROFILE_STEPS training steps and its predict, and the same run
-             untraced: the exported Chrome trace must hold K1, K2 and K3 as
-             CUDA kernel events as often as the run launched them.
+15. notebooks - each of the seven notebooks of
+             gpim_tpu_torch/examples/notebooks once, warm, at its full
+             budget on the card (gpim_tpu_torch.examples._notebook.execute,
+             in a new temporary directory removed afterwards, its printed
+             output kept aside): quickstart (48x48, exact RBF, 100
+             iterations; rmse against its noiseless truth < 0.1),
+             sparse_image_2d (rmse at the observed pixels < 0.1),
+             hyperspectral_3d_sparse (rmse against the full cube < 0.1),
+             eels_parallel_gp (finite, 64 x 64 x 6), ckpfm_4d_ski (rmse_fit
+             < 0.1), large_masked_ski (rmse against the truth < 0.75 data
+             sd) and bayesian_optimization (finite, its best value finite,
+             its checkpoint written); wall, peak memory and the plot cells
+             skipped (the only cells skipped); every model tensor on the
+             card; launches against the counts its code implies.
+16. trace   - utils.profiling.trace around a warm flagship run of
+             PROFILE_STEPS training steps and its predict, three times, a
+             new model each time, and the same run untraced: each exported
+             Chrome trace must hold K1, K2 and K3 as CUDA kernel events as
+             often as the run launched them.
 
 Prints the kernels as one JSON line, then as its last line
 {"ok": true, "device": {...}}.
@@ -278,6 +293,7 @@ VFE_CROSS_TOL = {"mean_atol": 1.2e-1, "sd_atol": 5e-2, "ls_rtol": 1.2e-1,
                  "same_u_mean_atol": 5e-3, "same_u_sd_atol": 1e-4}
 SMALL_RTOL = 1e-7          # small problems, CUDA vs CPU, float64
 PROFILE_STEPS = 10
+TRACE_REPEATS = 3          # traced flagship runs in phase trace
 # The BO rows of benchmarks/suite.py:87-213 at their own sizes, and the
 # full-width BO run seeded with the flagship's spiral scan; refit_iterations
 # is the boptimizer's default, gp_iterations // 4.
@@ -409,6 +425,17 @@ def bo25_data():
                       for i in range(25)])
     return grid, utils.get_sparse_grid(grid), utils.get_full_grid(grid), \
         truth
+
+
+def quickstart_data():
+    """quickstart.ipynb's image, made as its cell makes it: (noisy grid
+    with 65% NaN, noiseless truth)."""
+    rng = np.random.default_rng(0)
+    xx, yy = np.meshgrid(np.arange(48), np.arange(48), indexing="ij")
+    truth = np.sin(xx / 7.0) * np.cos(yy / 9.0)
+    R = truth + 0.05 * rng.standard_normal(truth.shape)
+    R[rng.random(R.shape) < 0.65] = np.nan
+    return R, truth
 
 
 def eels6_data():
@@ -945,6 +972,34 @@ def _bo_kernel_inputs(dtype):
                    ("VFE Ks", Xt, Xu, (ids(X5), ar(m)))]}
 
 
+def _quickstart_kernel_inputs(dtype):
+    """The operands quickstart.ipynb gives the kernels, from its own image
+    at lengthscales of a trained model (5.3 and 6.7 px): the training rows
+    (the observed pixels, padded to 128) with their mask, targets and
+    scaled coordinates, and K1's pairs at its predict (the training Gram
+    and the one test chunk of every pixel) with their coincident pairs."""
+    import torch
+    from gpim_tpu_torch import utils
+    from gpim_tpu_torch.gpreg import engine
+    R, _ = quickstart_data()
+    ls = np.array([5.3, 6.7])
+    t = lambda a: torch.as_tensor(a, dtype=dtype,  # noqa: E731
+                                  device="cuda").contiguous()
+    X_np, y_np = utils.prepare_training_data(utils.get_sparse_grid(R), R)
+    Xp, n_obs = engine.pad_rows(X_np, 128)
+    Xt_np = utils.prepare_test_data(utils.get_full_grid(R))
+    at = {tuple(x): i for i, x in enumerate(Xt_np)}
+    mask = np.zeros(len(Xp))
+    mask[:n_obs] = 1.0
+    Xs, Xt = t(Xp / ls), t(Xt_np / ls)
+    ar = torch.arange(n_obs, device="cuda")
+    ids = torch.as_tensor([at[tuple(x)] for x in X_np], device="cuda")
+    return {
+        "Xs": Xs, "Xr": t(Xp), "mask": t(mask),
+        "y": t(engine.pad_rows(y_np, 128)[0]),
+        "sqdist": [("Kxx", Xs, Xs, (ar, ar)), ("Ks", Xt, Xs, (ids, ar))]}
+
+
 def _masked_system_case(Xs, mask, vt, njt, at, dname):
     """K2 against its plain version for all three kernel families; returns
     the largest absolute error."""
@@ -1134,8 +1189,8 @@ def _batched_cases(eels64, dname, timed):
 
 
 def phase_kernels(R, X, X_full, vfe, eels64, ckpfm):
-    """Each kernel against its plain version at the flagship's shapes and
-    at the BO paths', batched at eels64's and at one task-sharded rank's
+    """Each kernel against its plain version at the flagship's shapes, at
+    the BO paths' and at quickstart.ipynb's, batched at eels64's and at one task-sharded rank's
     share of it, and K1 also at the VFE path's, the ckpfm4d Kronecker
     path's, the SKI rows' and the two-rank world's shapes."""
     import torch
@@ -1251,6 +1306,27 @@ def phase_kernels(R, X, X_full, vfe, eels64, ckpfm):
         rec["rbf_bwd_reductions"]["bo_shapes"] = {
             "bo25": {"err": err, "shape": shape}}
         del bo
+        # every kernel at the shapes quickstart.ipynb gives it
+        qs = _quickstart_kernel_inputs(dtype)
+        log("[kernels] quickstart shapes: training rows n = %d (%d "
+            "observed), test chunk %d, d = %d"
+            % (len(qs["Xs"]), int(qs["mask"].sum().item()),
+               len(qs["sqdist"][1][1]), qs["Xs"].shape[1]))
+        rec["sqdist"]["quickstart_shapes"] = {}
+        for label, A, B, zeros in qs["sqdist"]:
+            log("[kernels]   sqdist quickstart %s %d x %d"
+                % (label, len(A), len(B)))
+            rec["sqdist"]["quickstart_shapes"][label] = _sqdist_case(
+                A, B, zeros, dname, False)
+        shape = list(qs["Xs"].shape)
+        err = _masked_system_case(qs["Xs"], qs["mask"], vt, njt, at, dname)
+        rec["masked_system"]["quickstart_shapes"] = {
+            "quickstart": {"err": err, "shape": shape}}
+        err, _ = _rbf_bwd_case(qs["Xs"], qs["Xr"], qs["mask"], qs["y"], vt,
+                               njt, dname)
+        rec["rbf_bwd_reductions"]["quickstart_shapes"] = {
+            "quickstart": {"err": err, "shape": shape}}
+        del qs
         # every kernel with its task axis at the multi-output eels64 shapes
         for name, r in _batched_cases(eels64, dname, timed).items():
             rec[name]["batched_shapes"] = {"eels64": r}
@@ -3028,6 +3104,23 @@ def _gpr_expected(model, n_test):
                    rbf_bwd_reductions=steps)
 
 
+def _workflow_expected(name, model, mean, mean2x=None):
+    """Kernel launches an example workflow implies (a runner's run() or its
+    notebook) but the BO's (_bo_expected): ``model`` is its model, ``mean``
+    its prediction and ``mean2x`` the ckpfm workflow's 2x-dense one."""
+    if name == "eels_parallel_gp":
+        return _multi_expected(model, int(mean.size // mean.shape[-1]))
+    if name in ("quickstart", "sparse_image_2d", "hyperspectral_3d_sparse"):
+        return _gpr_expected(model, int(mean.size))
+    expected = _sk_expected(model, int(mean.size))
+    if mean2x is not None:
+        # the 2x-dense predict: K1 once a factor and once a factor a chunk
+        # of its cross rows
+        d = len(model._kron_engine.dims)
+        expected["sqdist"] += d * (1 + -(-int(mean2x.size) // SK_CHUNK))
+    return expected
+
+
 def _example_inputs(name, xl=False):
     """The runner's default data, made before its timed run."""
     mod = importlib.import_module("gpim_tpu_torch.examples." + name)
@@ -3068,21 +3161,9 @@ def _run_example(name, outdir, xl=False):
         ph = model.timer.phases
         rec.update(train_s=ph["train"]["first_s"],
                    predict_s=ph["predict"]["first_s"])
-        n_test = int(out["mean"].size // (out["mean"].shape[-1]
-                                          if name == "eels_parallel_gp"
-                                          else 1))
-        if name == "eels_parallel_gp":
-            expected = _multi_expected(model, n_test)
-        elif name in ("sparse_image_2d", "hyperspectral_3d_sparse"):
-            expected = _gpr_expected(model, n_test)
-        else:
-            expected = _sk_expected(model, n_test)
+        expected = _workflow_expected(name, model, out["mean"],
+                                      out.get("mean2x"))
         if name == "ckpfm_4d_ski":
-            # the 2x-dense predict: K1 once a factor and once a factor a
-            # chunk of its cross rows
-            d = len(model._kron_engine.dims)
-            n2 = int(out["mean2x"].size)
-            expected["sqdist"] += d * (1 + -(-n2 // SK_CHUNK))
             rec["predict2x_s"] = ph["predict"]["warm_s"][0]
     if model.device.type != "cuda":
         raise AssertionError("%s ran on %s, not the card"
@@ -3202,62 +3283,230 @@ def _fmt(x):
     return "-" if x is None else "%.3f" % x
 
 
+NOTEBOOK_DIR = os.path.join(_HERE, "gpim_tpu_torch", "examples", "notebooks")
+NOTEBOOKS = ("quickstart", "sparse_image_2d", "hyperspectral_3d_sparse",
+             "eels_parallel_gp", "ckpfm_4d_ski", "large_masked_ski",
+             "bayesian_optimization")
+
+
+def _model_tensors(model):
+    """The tensors a model holds, directly or in a dict (its parameters,
+    bounds, padded data)."""
+    out = []
+    for v in vars(model).values():
+        for t in (v.values() if isinstance(v, dict) else (v,)):
+            if hasattr(t, "is_cuda"):
+                out.append(t)
+    return out
+
+
+def _notebook_gate(name, ns, cwd):
+    """(what the gate reads, its value, its limit or None, the output is
+    finite and of the expected shape)."""
+    if name == "bayesian_optimization":
+        bo = ns["boptim"]
+        best = float(np.nanmax(np.asarray(bo.target_func_vals[-1], float)))
+        ok = (bo.steps_done == bo.exploration_steps
+              and np.asarray(bo.indices_all).shape == (bo.steps_done, 2)
+              and np.isfinite(np.asarray(bo.gp_predictions[-1][0])).all()
+              and os.path.exists(os.path.join(cwd, "boptim_results.npy")))
+        return "best_found", best, None, ok and np.isfinite(best)
+    mean, sd = ns["mean"], ns["sd"]
+    ok = np.isfinite(mean).all() and np.isfinite(sd).all() and \
+        mean.shape == sd.shape
+    if name == "quickstart":
+        truth = ns["truth"]
+        return ("rmse_vs_truth", float(np.sqrt(np.mean((mean - truth) ** 2))),
+                0.1, ok and mean.shape == truth.shape)
+    if name == "sparse_image_2d":
+        R = ns["R"]
+        obs = ~np.isnan(R)
+        return ("rmse_obs", float(np.sqrt(np.mean((mean[obs] - R[obs]) ** 2))),
+                0.1, ok and mean.shape == R.shape)
+    if name == "hyperspectral_3d_sparse":
+        # phase vfe's gate: against the full cube, both scaled by its range
+        from gpim_tpu_torch.examples import _data
+        truth = _data.bepfm_cube(sparse=False)
+        span = np.ptp(truth)
+        return ("rmse_vs_truth",
+                float(np.sqrt(np.mean(((mean - truth) / span) ** 2))), 0.1,
+                ok and mean.shape == truth.shape)
+    if name == "eels_parallel_gp":
+        return ("max_abs_mean", float(np.abs(mean).max()), None,
+                ok and mean.shape == (64, 64, 6))
+    if name == "ckpfm_4d_ski":
+        R = ns["R"]
+        ok = ok and mean.shape == R.shape and \
+            ns["mean2x"].shape == tuple(2 * n for n in R.shape) and \
+            np.isfinite(ns["mean2x"]).all() and np.isfinite(ns["sd2x"]).all()
+        return ("rmse_fit", float(np.sqrt(np.mean((mean - R) ** 2))), 0.1,
+                ok)
+    # large_masked_ski: phase mgrid's gate
+    truth, R = ns["truth"], ns["R"]
+    return ("rmse_vs_truth", float(ns["rmse"]), 0.75 * float(np.nanstd(R)),
+            ok and mean.shape == truth.shape
+            and ns["model"]._mgrid_engine is not None)
+
+
+def phase_notebooks():
+    """Each of the seven notebooks of gpim_tpu_torch/examples/notebooks
+    once, warm (every kernel is built by now), at its full budget on the
+    card: _notebook.execute(device="cuda") in a new temporary directory,
+    removed afterwards, with what the notebook prints kept aside (its last
+    line is logged). Prints its wall, peak memory and skipped cells (those
+    tagged plot, and no other); gates read from its namespace
+    (_notebook_gate); every model tensor on the card; K1-K4 launches
+    against the counts its code implies (quickstart: K2 and K3 once an
+    Adam step). Returns the launches by path."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import torch
+    from gpim_tpu_torch.examples import _notebook
+    paths, recs = {}, {}
+    for name in NOTEBOOKS:
+        path = os.path.join(NOTEBOOK_DIR, name + ".ipynb")
+        plots = [i for i, _, tags in _notebook.code_cells(path, skip_tags=())
+                 if _notebook.PLOT_TAG in tags]
+        cwd = tempfile.mkdtemp(prefix="chip_smoke_notebook_")
+        printed = io.StringIO()
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                ns, skipped = _notebook.execute(path, device="cuda", cwd=cwd)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _read_launches()
+            gate = _notebook_gate(name, ns, cwd)
+        finally:
+            shutil.rmtree(cwd, ignore_errors=True)
+        if name == "quickstart":
+            # phase kernels held K1-K3 at the shapes of this image
+            R, truth = quickstart_data()
+            if not (np.array_equal(ns["R"], R, equal_nan=True)
+                    and np.array_equal(ns["truth"], truth)):
+                raise AssertionError("quickstart: its image is not "
+                                     "quickstart_data()'s")
+        if name == "bayesian_optimization":
+            model = ns["boptim"].surrogate_model
+            expected = _bo_expected(ns["boptim"])
+        else:
+            model = ns["model"]
+            expected = _workflow_expected(name, model, ns["mean"],
+                                          ns.get("mean2x"))
+        tensors = _model_tensors(model)
+        rec = {"wall_s": wall, "peak_gib": torch.cuda.max_memory_allocated()
+               / 2 ** 30, "iterations": ns["ITERS"], "skipped": skipped,
+               "launches": launches, "expected": expected, gate[0]: gate[1]}
+        last = (printed.getvalue().strip().splitlines() or [""])[-1]
+        log("[notebooks] %-24s wall %.3f s, peak %.2f GiB, %d iterations, "
+            "plot cells skipped %s, %s %s%s, %d model tensors on %s, "
+            "launches %s (the code implies %s); it printed %d lines, the "
+            "last: %s" % (
+                name, wall, rec["peak_gib"], ns["ITERS"], skipped, gate[0],
+                "%.5f" % gate[1],
+                "" if gate[2] is None else " (gate < %.5f)" % gate[2],
+                len(tensors), sorted({str(t.device) for t in tensors}),
+                launches, expected,
+                len(printed.getvalue().splitlines()), last[:120]))
+        if skipped != plots:
+            raise AssertionError("%s: skipped cells %s, its plot cells %s"
+                                 % (name, skipped, plots))
+        if not gate[3]:
+            raise AssertionError("%s: output not finite or of the wrong "
+                                 "shape" % name)
+        if gate[2] is not None and not gate[1] < gate[2]:
+            raise AssertionError("%s: %s %.5f >= %.5f"
+                                 % (name, gate[0], gate[1], gate[2]))
+        if model.device.type != "cuda" or not tensors or \
+                not all(t.is_cuda for t in tensors):
+            raise AssertionError("%s: a model tensor is not on the card"
+                                 % name)
+        if launches != expected:
+            raise AssertionError("%s: launches %s, the code implies %s"
+                                 % (name, launches, expected))
+        if name == "quickstart" and not (
+                launches["masked_system"] == launches["rbf_bwd_reductions"]
+                == ns["ITERS"]):
+            raise AssertionError("quickstart: K2/K3 not once an Adam step")
+        key = "nb_" + name
+        recs[key], paths[key] = rec, launches
+        del ns
+    log("[notebooks] records: " + json.dumps(recs))
+    return paths
+
+
 def phase_trace(R, X, X_full):
     """utils.profiling.trace around a warm flagship run of PROFILE_STEPS
-    training steps and its predict: the exported Chrome trace must hold
-    K1, K2 and K3 among its CUDA kernel events as often as the run
-    launched them (K2 = K3 = the steps, K1 = 1 + 4 chunks); the same run
-    untraced beside it, for the instrumentation's cost."""
+    training steps and its predict, TRACE_REPEATS times, a new model each
+    time (run() trains on from a model's parameters): each exported Chrome
+    trace must hold K1, K2 and K3 among its CUDA kernel events as often as
+    the run launched them (K2 = K3 = the steps, K1 = 1 + 4 chunks); the
+    same run untraced beside them, for the instrumentation's cost."""
     import glob
     import shutil
     import tempfile
     import torch
     from gpim_tpu_torch import reconstructor
     from gpim_tpu_torch.utils.profiling import trace
-    model = reconstructor(X, R, X_full, kernel="RBF", precision="single",
-                          iterations=PROFILE_STEPS, verbose=0)
-    expected = _gpr_expected(model, int(X_full[0].size))
+
+    def model():
+        return reconstructor(X, R, X_full, kernel="RBF", precision="single",
+                             iterations=PROFILE_STEPS, verbose=0)
+
+    expected = _gpr_expected(model(), int(X_full[0].size))
     walls = {}
-    logdir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
-    try:
-        for tag in ("untraced", "traced"):
+    for tag in ["untraced"] + ["traced %d" % i
+                               for i in range(1, TRACE_REPEATS + 1)]:
+        m = model()
+        logdir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+        try:
             torch.cuda.synchronize()
             _reset_launches()
             t0 = time.perf_counter()
-            if tag == "traced":
-                with trace(logdir):
-                    model.run()
-                    torch.cuda.synchronize()
-            else:
-                model.run()
+            if tag == "untraced":
+                m.run()
                 torch.cuda.synchronize()
+            else:
+                # trace synchronises the card before it closes its window
+                with trace(logdir):
+                    m.run()
             walls[tag] = time.perf_counter() - t0
-            if _read_launches() != expected:
-                raise AssertionError("trace: launches %s, the code implies "
-                                     "%s" % (_read_launches(), expected))
-        files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
-        if len(files) != 1:
-            raise AssertionError("trace: %d trace files in %s"
-                                 % (len(files), logdir))
-        with open(files[0]) as f:
-            events = json.load(f)["traceEvents"]
-        size = os.path.getsize(files[0])
-    finally:
-        shutil.rmtree(logdir, ignore_errors=True)
-    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
-    found = {name: sum(k in n for n in kernels) for k, name in (
-        ("sqdist_kernel", "sqdist"),
-        ("masked_system_kernel", "masked_system"),
-        ("rbf_bwd_kernel", "rbf_bwd_reductions"),
-        ("interp_adjoint_kernel", "interp_adjoint"))}
-    log("[trace] flagship, %d steps and predict: %.3f s untraced, %.3f s in "
-        "utils.profiling.trace; the trace (%.1f MB) holds %d CUDA kernel "
-        "events, of them K1/K2/K3 %s (the run launched %s)" % (
-            PROFILE_STEPS, walls["untraced"], walls["traced"], size / 1e6,
-            len(kernels), found, expected))
-    if found != expected:
-        raise AssertionError("trace: kernel events %s, the run launched %s"
-                             % (found, expected))
+            files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+            events = []
+            if files:
+                with open(files[0]) as f:
+                    events = json.load(f)["traceEvents"]
+            size = sum(os.path.getsize(f) for f in files)
+        finally:
+            shutil.rmtree(logdir, ignore_errors=True)
+        if _read_launches() != expected:
+            raise AssertionError("trace: launches %s, the code implies %s"
+                                 % (_read_launches(), expected))
+        if len(files) != (tag != "untraced"):
+            raise AssertionError("trace (%s): %d trace files"
+                                 % (tag, len(files)))
+        if tag == "untraced":
+            continue
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        found = {name: sum(k in n for n in kernels) for k, name in (
+            ("sqdist_kernel", "sqdist"),
+            ("masked_system_kernel", "masked_system"),
+            ("rbf_bwd_kernel", "rbf_bwd_reductions"),
+            ("interp_adjoint_kernel", "interp_adjoint"))}
+        log("[trace] flagship, %d steps and predict, %s: %.3f s in "
+            "utils.profiling.trace (%.3f s untraced); the trace (%.1f MB) "
+            "holds %d CUDA kernel events, of them K1/K2/K3 %s (the run "
+            "launched %s)" % (
+                PROFILE_STEPS, tag, walls[tag], walls["untraced"],
+                size / 1e6, len(kernels), found, expected))
+        if found != expected:
+            raise AssertionError("trace (%s): kernel events %s, the run "
+                                 "launched %s" % (tag, found, expected))
     return walls
 
 
@@ -3694,9 +3943,10 @@ def kernel_records(kreport, paths):
                     "bound_share": v["bound"][0] / v["ms"],
                     "library_ms": v["library_ms"]}
             for label, v in r["batched_shapes"].items()}
-        out[-1]["bo_shapes"] = {
-            label: {"shape": v["shape"], "max_abs_err": v["err"]}
-            for label, v in r["bo_shapes"].items()}
+        for key in ("bo_shapes", "quickstart_shapes"):
+            out[-1][key] = {
+                label: {"shape": v["shape"], "max_abs_err": v["err"]}
+                for label, v in r[key].items()}
         if name == "sqdist":
             for key in ("vfe_shapes", "kron_shapes", "mgrid_shapes",
                         "ski_shapes", "parallel_shapes"):
@@ -3740,11 +3990,12 @@ def main():
     del model_1m, model_ski, bo25, spiral_bo
     torch.cuda.empty_cache()
     ex_paths = phase_examples()
+    nb_paths = phase_notebooks()
     phase_trace(R, X, X_full)
     print(json.dumps({"kernels": kernel_records(
         kreport, {"flagship": launches, "vfe": vfe_launches, **bo_paths,
                   **multi_paths, **sk_paths, **mgrid_paths,
-                  **ski_paths, **ex_paths, **par_paths})}),
+                  **ski_paths, **ex_paths, **nb_paths, **par_paths})}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,8 +24,12 @@ process a card (``torchrun --nproc-per-node=N``).
 
 ``gpim_tpu_torch.examples`` holds the six example workflows as runners
 (``python -m gpim_tpu_torch.examples.sparse_image_2d``; ``--cpu`` for the
-CPU). Plotting (``utils.plot_*``) needs matplotlib, which is imported on
-the first use of a plot function and never by ``import gpim_tpu_torch``.
+CPU) and, in ``examples/notebooks``, the seven example notebooks, which
+``examples._notebook.execute`` runs without Jupyter.
+``gpim_tpu_torch.entry`` gives the exact GP's predict step on a seeded
+problem and the parallel layer's multi-process dry run. Plotting
+(``utils.plot_*``) needs matplotlib, which is imported on the first use of
+a plot function and never by ``import gpim_tpu_torch``.
 
 Plain tensor code is PyTorch; the three kernels that ``gpim_tpu`` wrote in
 Pallas are hand-written CUDA for Hopper (``gpim_tpu_torch/csrc``), each

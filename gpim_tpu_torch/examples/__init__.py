@@ -14,4 +14,13 @@ where the script plots), calls ``run``, prints the script's numbers and
 plots. Results (an ``.npz`` a run, and the Bayesian optimiser's
 checkpoint) go to ``outdir``, by default a new temporary directory.
 Plotting needs matplotlib.
+
+``notebooks/`` holds the seven example notebooks (the six workflows and a
+quickstart), written by ``notebooks/_generate.py``. Each runs on the card
+unless ``GPIM_TPU_TORCH_NB_DEVICE=cpu``; ``GPIM_TPU_TORCH_NB_ITERS`` shrinks
+its iteration budget. :func:`_notebook.execute` runs one without Jupyter,
+skipping its cells tagged ``plot``:
+
+    from gpim_tpu_torch.examples import _notebook
+    ns, skipped = _notebook.execute(".../quickstart.ipynb", device="cpu")
 """

@@ -22,6 +22,14 @@ import torch
 
 __all__ = ["trace", "Timer"]
 
+# The profiler keeps a CUDA kernel's event only if its device timestamps,
+# placed on the host's clock, fall inside the window; on an H100 they sat
+# up to 4.3 ms before the kernel's own launch call, so a kernel launched
+# within a few ms of the window's start could land before it and be
+# dropped. The card idles this long, synchronised, after the window opens
+# and before it closes.
+EDGE_S = 0.05
+
 
 @contextlib.contextmanager
 def trace(logdir=None):
@@ -29,15 +37,24 @@ def trace(logdir=None):
     card is present) and write it to ``logdir`` (default:
     ``gpim_tpu_torch_trace`` in the temporary directory) as
     ``<host>_<pid>.<ms>.pt.trace.json``, the name TensorBoard's profiler
-    plugin looks for; yields ``logdir``."""
+    plugin looks for; yields ``logdir``. On a card, the window opens on an
+    idle card and stays open ``EDGE_S`` before the block and after its
+    last kernel, so that the trace holds every kernel the block ran."""
     from torch.profiler import ProfilerActivity, profile
     if logdir is None:
         logdir = os.path.join(tempfile.gettempdir(), "gpim_tpu_torch_trace")
+    cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    if cuda:
         activities.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
     with profile(activities=activities) as prof:
+        if cuda:
+            time.sleep(EDGE_S)
         yield logdir
+        if cuda:
+            torch.cuda.synchronize()
+            time.sleep(EDGE_S)
     os.makedirs(logdir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(logdir, "%s_%d.%d.pt.trace.json" % (
         socket.gethostname(), os.getpid(), time.time_ns() // 1_000_000)))

@@ -39,7 +39,8 @@ setup(
     long_description_content_type="text/markdown",
     packages=find_packages(exclude=("tests",)),
     package_data={"gpim_tpu.native": ["*.cpp", "build.sh"],
-                  "gpim_tpu_torch": ["csrc/*.cu"]},
+                  "gpim_tpu_torch": ["csrc/*.cu",
+                                     "examples/notebooks/*.ipynb"]},
     python_requires=">=3.10",
     install_requires=[
         "jax>=0.4.30",

@@ -17,7 +17,8 @@ against the CPU path; K4, the off-lattice interpolation adjoint, against
 its plain version on ragged grids with empty cells, bit-equal run to run
 and to the plain version on the CPU (also where one cell's entries span
 chunks), and launched by an off-lattice run(); the f32 predictive sd in the
-cancellation regime. One test, of the bytes the kernels' bounds count,
+cancellation regime; utils.profiling.trace holding every kernel a run
+launched. One test, of the bytes the kernels' bounds count,
 runs on the CPU.
 
 The tests marked ``cuda`` need a CUDA device and skip without one. The file
@@ -1086,3 +1087,41 @@ def test_an_off_lattice_run_launches_k4_and_repeats_bit_for_bit(dev):
         assert gk.interp_adjoint.launches - before > 4
     for a, b in zip(*runs):
         assert np.array_equal(a, b)
+
+
+@cuda
+def test_a_trace_holds_every_kernel_the_run_launched(dev, tmp_path):
+    """utils.profiling.trace around five warm exact RBF runs of a few steps
+    and their predict, a new model each: each Chrome trace holds K1, K2 and
+    K3 as CUDA kernel events exactly as often as the run launched them."""
+    import json
+
+    import gpim_tpu_torch
+    from gpim_tpu_torch import utils
+    from gpim_tpu_torch.utils.profiling import trace
+    rng = np.random.RandomState(3)
+    R = rng.rand(48, 48)
+    R[rng.rand(48, 48) < 0.5] = np.nan
+    X, Xf = utils.get_sparse_grid(R), utils.get_full_grid(R)
+
+    def model():
+        return gpim_tpu_torch.reconstructor(
+            X, R, Xf, kernel="RBF", iterations=4, precision="single",
+            verbose=0)
+
+    model().run()
+    names = (("sqdist_kernel", gk.sqdist),
+             ("masked_system_kernel", gk.masked_system),
+             ("rbf_bwd_kernel", gk.rbf_bwd_reductions))
+    for i in range(5):
+        m = model()
+        before = [w.launches for _, w in names]
+        logdir = tmp_path / str(i)
+        with trace(str(logdir)):
+            m.run()
+        launched = [w.launches - b for (_, w), b in zip(names, before)]
+        assert launched[1] == launched[2] == 4 and launched[0] > 0
+        (path,) = logdir.glob("*.pt.trace.json")
+        events = json.loads(path.read_text())["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        assert [sum(k in n for n in kernels) for k, _ in names] == launched
