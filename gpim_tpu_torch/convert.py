@@ -11,12 +11,15 @@ tensors, so a JAX-trained model can be predicted by the port.
 import numpy as np
 import torch
 
+from gpim_tpu_torch.utils import profiling
+
 __all__ = ["params_from_numpy", "bounds_from_numpy"]
 
 
 def _to_tensors(arrays, device, dtype):
-    return {k: torch.tensor(np.asarray(v), dtype=dtype, device=device)
-            for k, v in arrays.items()}
+    with profiling.wait("upload", len(arrays)):
+        return {k: torch.tensor(np.asarray(v), dtype=dtype, device=device)
+                for k, v in arrays.items()}
 
 
 def params_from_numpy(u, device, dtype):

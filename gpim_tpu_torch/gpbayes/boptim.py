@@ -13,10 +13,10 @@ The surrogate is the port's ``reconstructor``, on the CUDA device unless the
 caller passes ``use_gpu=False``. The outer loop, the distance suppression
 and the memory filters are host-side control logic, as in the reference.
 
-For the named acquisition functions each step runs ``_device_bo_step``:
-retrain -> dense predict -> acquisition as one function on tensors; the
-step ranks its output on the device (``_top_k``) and reads back only the
-top-k candidates and the final lengthscale. The full-grid mean/sd and the
+For the named acquisition functions each step runs ``_fused_step``:
+retrain -> dense predict -> acquisition on tensors; the step ranks its
+output on the device (``_top_k``) and reads back only the top-k candidates
+and the final lengthscale. The full-grid mean/sd and the
 hyperparameter trajectory stay on the device until a save or the end of
 ``run``. Simulated measurements take the same step: the JAX package's
 device-resident explore loop (``device_loop``) exists there to run the
@@ -26,6 +26,13 @@ would be the same Python loop with the same synchronisations, so
 
 Ranking keeps equal acquisition values in ascending flat-index order, as
 ``jax.lax.top_k`` and ``jnp.argmax`` do.
+
+A step is a ``bo.step`` span (:mod:`gpim_tpu_torch.utils.profiling`) over
+the phases ``bo.update`` (the training set's upload), ``engine.train``
+(the refit), ``engine.predict``, ``bo.rank`` (acquisition, ranking and the
+read-back), ``bo.select`` (``checkvalues``), ``bo.measure`` (the target
+call) and ``bo.record`` (the grid's rebuild); ``run()``'s trailing refit
+is ``bo.refit_tail``.
 """
 
 import math
@@ -39,7 +46,7 @@ from gpim_tpu_torch import convert, dtypes
 from gpim_tpu_torch.gpbayes import acqfunc
 from gpim_tpu_torch.gpreg import engine, gpr
 from gpim_tpu_torch.native import spatial
-from gpim_tpu_torch.utils import gridutils
+from gpim_tpu_torch.utils import gridutils, profiling
 
 __all__ = ["boptimizer"]
 
@@ -74,24 +81,6 @@ def _top_k(macq, k):
     CUDA, and far from the data many grid points share one f32 sd."""
     neg, order = torch.sort(-macq, stable=True)
     return -neg[:k], order[:k]
-
-
-def _device_bo_step(m, u0, lr, iterations, chunks, obs_mask, sel_mask,
-                    alpha, beta, xi, acq_kind):
-    """One retrain -> predict -> acquisition step of the surrogate ``m`` on
-    tensors (through its mesh, when it has one).
-
-    ``sel_mask`` folds the user's acquisition mask together with the
-    test-grid padding; ``obs_mask`` marks observed grid points for the
-    EI/POI incumbent. Returns (u, trajectory, mean, sd, masked
-    acquisition), all on the device.
-    """
-    u, traj = m._fit(u0, lr, iterations)
-    mean, var = m._predict_chunks(u, chunks)
-    sd = torch.sqrt(var)
-    macq = _select(_acquisition(mean, sd, obs_mask, acq_kind, alpha, beta,
-                                xi), sel_mask)
-    return u, traj, mean, sd, macq
 
 
 def _surrogate_precision(precision):
@@ -238,21 +227,25 @@ class boptimizer:
         (simulated lookup / measured array / instrument callback with
         optional extent offsetting, reference boptim.py:253-276)."""
         indices = [indices] if not self.batch_update else indices
-        if self.simulate_measurement:
-            for idx in indices:
-                self.y_sparse[tuple(idx)] = self.y_true[tuple(idx)]
-        elif y_measured is not None:
-            for idx in indices:
-                self.y_sparse[tuple(idx)] = y_measured[tuple(idx)]
-        else:
-            for idx in indices:
-                if self.extent is not None:
-                    _idx = tuple(i + e[0] for i, e in zip(idx, self.extent))
-                else:
-                    _idx = tuple(idx)
-                self.y_sparse[tuple(idx)] = self.target_function(_idx)
-        self.X_sparse = gridutils.get_sparse_grid(self.y_sparse, self.extent)
-        self.target_func_vals.append(self.y_sparse.copy())
+        with profiling.span("bo.measure"):
+            if self.simulate_measurement:
+                for idx in indices:
+                    self.y_sparse[tuple(idx)] = self.y_true[tuple(idx)]
+            elif y_measured is not None:
+                for idx in indices:
+                    self.y_sparse[tuple(idx)] = y_measured[tuple(idx)]
+            else:
+                for idx in indices:
+                    if self.extent is not None:
+                        _idx = tuple(i + e[0]
+                                     for i, e in zip(idx, self.extent))
+                    else:
+                        _idx = tuple(idx)
+                    self.y_sparse[tuple(idx)] = self.target_function(_idx)
+        with profiling.span("bo.record"):
+            self.X_sparse = gridutils.get_sparse_grid(self.y_sparse,
+                                                      self.extent)
+            self.target_func_vals.append(self.y_sparse.copy())
 
     def next_point(self):
         """Acquisition evaluation over the full grid and candidate ranking
@@ -323,27 +316,37 @@ class boptimizer:
         candidate-ranking semantics as next_point (reference
         boptim.py:278-324); the dense mean/sd prediction is appended to
         gp_predictions as device tensors and materialized at save time.
+        The retrain and the prediction run through the surrogate's mesh,
+        when it has one.
         """
         m = self.surrogate_model
         obs = np.zeros(self._n_flat, bool)
         obs[:self._n_test] = ~np.isnan(
             np.asarray(self.y_sparse).ravel())
-        u_new, traj, mean, sd, macq = _device_bo_step(
-            m, m.u, float(m.learning_rate), int(iterations), self._chunks_d,
-            torch.as_tensor(obs, device=m.device), self._sel_mask_d,
-            float(self.alpha), float(self.beta), float(self.xi),
-            self.acquisition_function)
-        m.u = u_new
+        with profiling.wait("upload"):
+            obs_d = torch.as_tensor(obs, device=m.device)
+        u, traj = m._fit(m.u, float(m.learning_rate), int(iterations))
+        mean, var = m._predict_chunks(u, self._chunks_d)
+        m.u = u
         m._traj_list.append(traj)          # on the device until assembled
-        self.gp_predictions.append((mean, sd))
-        top = _top_k(macq, min(self.batch_size, self._n_flat))
-        vals, order, ls_last = (t.cpu().numpy() for t in (
-            *top, traj["lengthscale"][-1]))
-        valid = np.isfinite(vals)
-        vals, order = vals[valid], order[valid]
-        vals_list = vals.tolist()
-        indices_list = np.stack(
-            np.unravel_index(order, self._fulldims), axis=-1).tolist()
+        with profiling.span("bo.rank"):
+            sd = torch.sqrt(var)
+            self.gp_predictions.append((mean, sd))
+            # the selection mask folds the user's acquisition mask together
+            # with the test-grid padding
+            macq = _select(_acquisition(
+                mean, sd, obs_d, self.acquisition_function,
+                float(self.alpha), float(self.beta), float(self.xi)),
+                self._sel_mask_d)
+            top = _top_k(macq, min(self.batch_size, self._n_flat))
+            with profiling.wait("readback", 3):
+                vals, order, ls_last = (t.cpu().numpy() for t in (
+                    *top, traj["lengthscale"][-1]))
+            valid = np.isfinite(vals)
+            vals, order = vals[valid], order[valid]
+            vals_list = vals.tolist()
+            indices_list = np.stack(
+                np.unravel_index(order, self._fulldims), axis=-1).tolist()
         return vals_list, indices_list, float(np.mean(ls_last))
 
     def _materialize(self):
@@ -354,14 +357,18 @@ class boptimizer:
         dims, n = self._fulldims, self._n_test
         for i, pred in enumerate(self.gp_predictions):
             if isinstance(pred[0], torch.Tensor):
-                self.gp_predictions[i] = tuple(
-                    t[:n].cpu().numpy().reshape(dims) for t in pred)
+                with profiling.wait("materialize", len(pred)):
+                    self.gp_predictions[i] = tuple(
+                        t[:n].cpu().numpy().reshape(dims) for t in pred)
         m = self.surrogate_model
-        if any(isinstance(v, torch.Tensor)
-               for t in m._traj_list for v in t.values()):
-            m._traj_list = [{k: (v.cpu().numpy()
-                                 if isinstance(v, torch.Tensor) else v)
-                             for k, v in t.items()} for t in m._traj_list]
+        reads = sum(isinstance(v, torch.Tensor)
+                    for t in m._traj_list for v in t.values())
+        if reads:
+            with profiling.wait("materialize", reads):
+                m._traj_list = [{k: (v.cpu().numpy()
+                                     if isinstance(v, torch.Tensor) else v)
+                                 for k, v in t.items()}
+                                for t in m._traj_list]
             m._assemble_hyperparams()
 
     def update_points(self, acqfunc_values, indices, dscale):
@@ -438,32 +445,38 @@ class boptimizer:
         if self.verbose:
             print("\nExploration step {} / {}".format(
                 e + 1, self.exploration_steps))
-        if self._fused_ok():
-            iters = (self.surrogate_model.iterations if e == 0
-                     else self.refit_iterations)
-            self.surrogate_model.update_data(self.X_sparse, self.y_sparse)
-            vals, inds, lscale = self._fused_step(iters)
-            if self.batch_update:
-                bd = (self.batch_dscale if self.batch_dscale is not None
-                      else lscale)
-                vals, inds = self.update_points(vals, inds, bd)
+        with profiling.span("bo.step", cpu=True, step=e,
+                            measured=len(self.indices_all)):
+            if self._fused_ok():
+                iters = (self.surrogate_model.iterations if e == 0
+                         else self.refit_iterations)
+                with profiling.span("bo.update"):
+                    self.surrogate_model.update_data(self.X_sparse,
+                                                     self.y_sparse)
+                vals, inds, lscale = self._fused_step(iters)
+                with profiling.span("bo.select"):
+                    if self.batch_update:
+                        bd = (self.batch_dscale
+                              if self.batch_dscale is not None else lscale)
+                        vals, inds = self.update_points(vals, inds, bd)
+                    else:
+                        inds, vals = self.checkvalues(inds, vals)
+                self.evaluate_function(inds)
             else:
-                inds, vals = self.checkvalues(inds, vals)
-            self.evaluate_function(inds)
-        else:
-            if e == 0:
-                self.surrogate_model.train()
-            vals, inds = self.next_point()
-            if not self.batch_update:
-                inds, vals = self.checkvalues(inds, vals)
-            self.evaluate_function(inds)
-            self.update_posterior()
-        if isinstance(vals, float):
-            self.indices_all.append(inds)
-            self.vals_all.append(vals)
-        else:
-            self.indices_all.extend(inds)
-            self.vals_all.extend(vals)
+                if e == 0:
+                    self.surrogate_model.train()
+                vals, inds = self.next_point()
+                if not self.batch_update:
+                    with profiling.span("bo.select"):
+                        inds, vals = self.checkvalues(inds, vals)
+                self.evaluate_function(inds)
+                self.update_posterior()
+            if isinstance(vals, float):
+                self.indices_all.append(inds)
+                self.vals_all.append(vals)
+            else:
+                self.indices_all.extend(inds)
+                self.vals_all.extend(vals)
 
     def run(self):
         """Run the exploration loop (resumable - continues from steps_done
@@ -481,10 +494,11 @@ class boptimizer:
             # deferred every other retrain into the next step. Called
             # through the engine so the surrogate's iterations stay as set.
             m = self.surrogate_model
-            m.update_data(self.X_sparse, self.y_sparse)
-            m.u, traj = m._fit(m.u, float(m.learning_rate),
-                               int(self.refit_iterations))
-            m._traj_list.append(traj)
+            with profiling.span("bo.refit_tail"):
+                m.update_data(self.X_sparse, self.y_sparse)
+                m.u, traj = m._fit(m.u, float(m.learning_rate),
+                                   int(self.refit_iterations))
+                m._traj_list.append(traj)
         self.save_results()
         if self.verbose:
             print("\nExploration completed")
@@ -499,6 +513,9 @@ class boptimizer:
         the surrogate's trained (unconstrained) hyperparameters; the layout
         of gpim_tpu's save_checkpoint, numpy only."""
         self._materialize()
+        u = self.surrogate_model.u
+        with profiling.wait("checkpoint", len(u)):
+            u_np = {k: v.detach().cpu().numpy() for k, v in u.items()}
         state = {
             "y_sparse": self.y_sparse,
             "indices_all": self.indices_all,
@@ -507,8 +524,7 @@ class boptimizer:
             "gp_predictions": self.gp_predictions,
             "steps_done": self.steps_done,
             "rng_state": self._rng.get_state(),
-            "surrogate_u": {k: v.detach().cpu().numpy()
-                            for k, v in self.surrogate_model.u.items()},
+            "surrogate_u": u_np,
         }
         _atomic_save(str(filename) + ".npy", state, allow_pickle=True)
 

@@ -42,6 +42,7 @@ from gpim_tpu_torch.ops.linalg import safe_cholesky, solve_triangular
 from gpim_tpu_torch.ops.tri import tri_inverse
 from gpim_tpu_torch.parallel.distributed import (
     all_reduce, copy_to_shards, reduce_from_shards)
+from gpim_tpu_torch.utils import profiling
 
 __all__ = [
     "constrain", "exact_loss", "mll_from_gram", "vfe_loss", "train",
@@ -400,7 +401,8 @@ def _check_cholesky(infos, what, factors=("",)):
     """Raise if any recorded Cholesky status is nonzero (one host sync).
     ``infos`` is (steps, len(factors)) or flat, one status per factor (per
     task, for the multi-output GP)."""
-    infos = infos.cpu().numpy().reshape(-1, len(factors))
+    with profiling.wait("cholesky"):
+        infos = infos.cpu().numpy().reshape(-1, len(factors))
     bad = np.argwhere(infos)
     if bad.size:
         step, f = bad[0]
@@ -425,10 +427,14 @@ def adam_steps(loss_info, u0, lr, iterations, factors=("",)):
     Cholesky status of each of ``factors``, is recorded every step and
     checked once at the end, and a failure raises
     ``torch.linalg.LinAlgError``. A loss with no Cholesky factor passes
-    ``factors=()`` and returns ``info`` None.
+    ``factors=()`` and returns ``info`` None. The optimizer's construction
+    is an ``adam.init`` span and each iteration an ``adam.step`` span
+    (:mod:`gpim_tpu_torch.utils.profiling`).
     """
     u = {k: v.detach().clone().requires_grad_(True) for k, v in u0.items()}
-    opt = torch.optim.Adam(list(u.values()), lr=lr)
+    with profiling.span("adam.init"):
+        # the process's first optimizer imports torch._dynamo
+        opt = torch.optim.Adam(list(u.values()), lr=lr)
     first = next(iter(u.values()))
     dev = first.device
     losses = torch.empty((iterations,), dtype=first.dtype, device=dev)
@@ -437,16 +443,17 @@ def adam_steps(loss_info, u0, lr, iterations, factors=("",)):
     u_traj = {k: torch.empty((iterations,) + tuple(v.shape), dtype=v.dtype,
                              device=dev) for k, v in u.items()}
     for i in range(iterations):
-        opt.zero_grad(set_to_none=True)
-        loss, info = loss_info(u)
-        loss.backward()
-        opt.step()
-        with torch.no_grad():
-            losses[i] = loss
-            if factors:
-                infos[i] = info
-            for k, v in u.items():
-                u_traj[k][i] = v
+        with profiling.span("adam.step"):
+            opt.zero_grad(set_to_none=True)
+            loss, info = loss_info(u)
+            loss.backward()
+            opt.step()
+            with torch.no_grad():
+                losses[i] = loss
+                if factors:
+                    infos[i] = info
+                for k, v in u.items():
+                    u_traj[k][i] = v
     if factors:
         _check_cholesky(infos, "train", factors)
     return {k: v.detach() for k, v in u.items()}, u_traj, losses
@@ -532,11 +539,12 @@ def train(u0, X, y, mask, bounds, lr, jitter, *, kernel, iterations,
     else:
         loss_info = lambda uu: _exact_loss_info(  # noqa: E731
             uu, X, y, mask, bounds, jitter, kernel)
-    u, u_traj, losses = adam_steps(
-        loss_info, u0, lr, iterations, _VFE_FACTORS if sparse else ("",))
-    with torch.no_grad():
-        # constrain the raw trajectory in one batched pass
-        traj = _record(constrain(u_traj, bounds))
+    with profiling.span("engine.train", cpu=True):
+        u, u_traj, losses = adam_steps(
+            loss_info, u0, lr, iterations, _VFE_FACTORS if sparse else ("",))
+        with torch.no_grad():
+            # constrain the raw trajectory in one batched pass
+            traj = _record(constrain(u_traj, bounds))
     traj["loss"] = losses
     return u, traj
 
@@ -554,26 +562,31 @@ def predict_exact(u, X, y, mask, bounds, jitter, Xtest_chunks, *,
     another so peak memory stays at one (n, chunk) block. Variance includes
     observation noise unless ``noiseless``.
     """
-    kfn = get_kernel_fn(kernel)
-    p = constrain(u, bounds)
-    A = _masked_system(kfn(p, X, X), p["noise"], mask, jitter)
-    L, info = safe_cholesky(A)
-    # one explicit L^-1 turns every per-chunk triangular solve into a gemm
-    V = tri_inverse(L)
-    alpha = V.T @ (V @ (y * mask))
-    n_chunks, chunk = Xtest_chunks.shape[:2]
-    means = torch.empty((n_chunks, chunk), dtype=X.dtype, device=X.device)
-    variances = torch.empty_like(means)
-    for c in range(n_chunks):
-        xc = Xtest_chunks[c]
-        Ks = kfn(p, xc, X) * mask[None, :]
-        means[c] = Ks @ alpha
-        W = V @ Ks.T
-        var = kernel_diag(kernel, p, xc) - (W * W).sum(dim=0)
-        if not noiseless:
-            var = var + p["noise"]
-        variances[c] = var.clamp_min(0.0)
-    _check_cholesky(info, "predict")
+    with profiling.span("engine.predict"):
+        kfn = get_kernel_fn(kernel)
+        with profiling.span("predict.factor"):
+            p = constrain(u, bounds)
+            A = _masked_system(kfn(p, X, X), p["noise"], mask, jitter)
+            L, info = safe_cholesky(A)
+            # one explicit L^-1 turns every per-chunk triangular solve
+            # into a gemm
+            V = tri_inverse(L)
+            alpha = V.T @ (V @ (y * mask))
+        n_chunks, chunk = Xtest_chunks.shape[:2]
+        means = torch.empty((n_chunks, chunk), dtype=X.dtype,
+                            device=X.device)
+        variances = torch.empty_like(means)
+        for c in range(n_chunks):
+            with profiling.span("predict.chunk"):
+                xc = Xtest_chunks[c]
+                Ks = kfn(p, xc, X) * mask[None, :]
+                means[c] = Ks @ alpha
+                W = V @ Ks.T
+                var = kernel_diag(kernel, p, xc) - (W * W).sum(dim=0)
+                if not noiseless:
+                    var = var + p["noise"]
+                variances[c] = var.clamp_min(0.0)
+        _check_cholesky(info, "predict")
     return means.reshape(-1), variances.reshape(-1)
 
 

@@ -37,8 +37,7 @@ from gpim_tpu_torch import convert, dtypes
 from gpim_tpu_torch.gpreg import engine
 from gpim_tpu_torch.kernels.transforms import (
     interval_inverse, positive_inverse)
-from gpim_tpu_torch.utils import gridutils
-from gpim_tpu_torch.utils.profiling import Timer
+from gpim_tpu_torch.utils import gridutils, profiling
 
 __all__ = ["reconstructor"]
 
@@ -104,92 +103,95 @@ class reconstructor:
             raise NotImplementedError(
                 "Select one of the currently available kernels: "
                 "RBF, Matern52, RationalQuadratic")
-        self.device = _resolve_device(use_gpu)
-        self.precision = kwargs.get("precision")
-        self.dtype = dtypes.resolve_dtype(self.precision, self.device)
-        np_dtype = _NP_DTYPE[self.dtype]
-        self._prec_str = ("single" if self.dtype == torch.float32
-                          else "double")
-        self.verbose = verbose
-        self.seed = seed
-        self.kernel_type = kernel
-        self.do_sparse = bool(sparse)
-        input_dim = np.ndim(y)
+        with profiling.span("recon.init"):
+            self.device = _resolve_device(use_gpu)
+            self.precision = kwargs.get("precision")
+            self.dtype = dtypes.resolve_dtype(self.precision, self.device)
+            np_dtype = _NP_DTYPE[self.dtype]
+            self._prec_str = ("single" if self.dtype == torch.float32
+                              else "double")
+            self.verbose = verbose
+            self.seed = seed
+            self.kernel_type = kernel
+            self.do_sparse = bool(sparse)
+            input_dim = np.ndim(y)
 
-        # --- host-side data prep (NaN compaction), reference gpr.py:115 ---
-        X_np, y_np = gridutils.prepare_training_data(
-            X, y, precision=self._prec_str)
+            # --- host-side data prep (NaN compaction), reference gpr.py:115
+            X_np, y_np = gridutils.prepare_training_data(
+                X, y, precision=self._prec_str)
 
-        # --- lengthscale bounds defaults, reference gpr.py:118-123 ---
-        if lengthscale is None:
-            lmean = float(np.mean(y.shape) / 2)
-            if kwargs.get("isotropic"):
-                lengthscale = [0.0, lmean]
+            # --- lengthscale bounds defaults, reference gpr.py:118-123 ---
+            if lengthscale is None:
+                lmean = float(np.mean(y.shape) / 2)
+                if kwargs.get("isotropic"):
+                    lengthscale = [0.0, lmean]
+                else:
+                    lengthscale = [[0.0] * input_dim, [lmean] * input_dim]
+            ls_lo, ls_hi = _as_bounds(lengthscale, np_dtype)
+            amp = kwargs.get("amplitude")
+            if amp is None:
+                amp = [1e-4, 10.0]
+            self._bounds_np = {
+                "ls_lo": ls_lo, "ls_hi": ls_hi,
+                "var_lo": np.asarray(amp[0], np_dtype),
+                "var_hi": np.asarray(amp[1], np_dtype),
+            }
+
+            if Xtest is not None:
+                self.fulldims = Xtest.shape[1:]
+                self.Xtest = gridutils.prepare_test_data(
+                    Xtest, precision=self._prec_str)
             else:
-                lengthscale = [[0.0] * input_dim, [lmean] * input_dim]
-        ls_lo, ls_hi = _as_bounds(lengthscale, np_dtype)
-        amp = kwargs.get("amplitude")
-        if amp is None:
-            amp = [1e-4, 10.0]
-        self._bounds_np = {
-            "ls_lo": ls_lo, "ls_hi": ls_hi,
-            "var_lo": np.asarray(amp[0], np_dtype),
-            "var_hi": np.asarray(amp[1], np_dtype),
-        }
+                self.fulldims = X.shape[1:]
+                self.Xtest = None
 
-        if Xtest is not None:
-            self.fulldims = Xtest.shape[1:]
-            self.Xtest = gridutils.prepare_test_data(
-                Xtest, precision=self._prec_str)
-        else:
-            self.fulldims = X.shape[1:]
-            self.Xtest = None
+            self.jitter = float(kwargs.get("jitter",
+                                           dtypes.default_jitter(self.dtype)))
+            self.learning_rate = learning_rate
+            self.iterations = iterations
 
-        self.jitter = float(kwargs.get("jitter",
-                                       dtypes.default_jitter(self.dtype)))
-        self.learning_rate = learning_rate
-        self.iterations = iterations
+            # --- parameter initialization (unconstrained space), as in
+            # gpim_tpu: lengthscale 10% into its interval, variance and
+            # noise 1
+            b = self._bounds()
+            ls_init = ls_lo + 0.1 * (ls_hi - ls_lo)
+            var_init = np.clip(np.asarray(1.0, np_dtype),
+                               amp[0] * 1.001, amp[1] * 0.999)
+            one = self._tensor(1.0)
+            self.u = {
+                "lengthscale": interval_inverse(
+                    self._tensor(ls_init), b["ls_lo"], b["ls_hi"]),
+                "variance": interval_inverse(
+                    self._tensor(var_init), b["var_lo"], b["var_hi"]),
+                "noise": positive_inverse(one),
+            }
+            if kernel == "RationalQuadratic":
+                self.u["alpha"] = positive_inverse(one)
+            if sparse:
+                # strided subsample of the observations
+                # (gpim_tpu gpr.py:167-178)
+                if indpoints is None:
+                    indpoints = max(len(X_np) // 10, 1)
+                else:
+                    indpoints = min(indpoints, len(X_np))
+                Xu = X_np[::len(X_np) // indpoints].copy()
+                if self.verbose == 2:
+                    print("# of inducing points for sparse GP regression: "
+                          "{}".format(len(Xu)))
+                self.u["Xu"] = self._tensor(Xu)
 
-        # --- parameter initialization (unconstrained space), as in
-        # gpim_tpu: lengthscale 10% into its interval, variance and noise 1
-        b = self._bounds()
-        ls_init = ls_lo + 0.1 * (ls_hi - ls_lo)
-        var_init = np.clip(np.asarray(1.0, np_dtype),
-                           amp[0] * 1.001, amp[1] * 0.999)
-        one = self._tensor(1.0)
-        self.u = {
-            "lengthscale": interval_inverse(
-                self._tensor(ls_init), b["ls_lo"], b["ls_hi"]),
-            "variance": interval_inverse(
-                self._tensor(var_init), b["var_lo"], b["var_hi"]),
-            "noise": positive_inverse(one),
-        }
-        if kernel == "RationalQuadratic":
-            self.u["alpha"] = positive_inverse(one)
-        if sparse:
-            # strided subsample of the observations (gpim_tpu gpr.py:167-178)
-            if indpoints is None:
-                indpoints = max(len(X_np) // 10, 1)
-            else:
-                indpoints = min(indpoints, len(X_np))
-            Xu = X_np[::len(X_np) // indpoints].copy()
-            if self.verbose == 2:
-                print("# of inducing points for sparse GP regression: "
-                      "{}".format(len(Xu)))
-            self.u["Xu"] = self._tensor(Xu)
-
-        self._set_data(X_np, y_np)
-        self.hyperparams = {}
-        self._traj_list = []
-        self.timer = Timer()
+            self._set_data(X_np, y_np)
+            self.hyperparams = {}
+            self._traj_list = []
 
     # ------------------------------------------------------------------
     # data plumbing
     # ------------------------------------------------------------------
 
     def _tensor(self, x):
-        return torch.as_tensor(np.asarray(x, _NP_DTYPE[self.dtype]),
-                               device=self.device)
+        with profiling.wait("upload"):
+            return torch.as_tensor(np.asarray(x, _NP_DTYPE[self.dtype]),
+                                   device=self.device)
 
     def _set_data(self, X_np, y_np):
         """Install a (new) training set, padded to a bucket size."""
@@ -228,7 +230,8 @@ class reconstructor:
     def current_lengthscale(self):
         """Constrained lengthscale(s) from the current parameters."""
         p = engine.constrain(self.u, self._bounds())
-        return p["lengthscale"].cpu().numpy()
+        with profiling.wait("readback"):
+            return p["lengthscale"].cpu().numpy()
 
     # ------------------------------------------------------------------
     # training
@@ -246,10 +249,11 @@ class reconstructor:
         start_time = time.time()
         if self.verbose:
             print('Model training...')
-        with self.timer.phase("train", self.device):
+        with profiling.span("recon.train"):
             self.u, traj = self._fit(self.u, float(self.learning_rate),
                                      int(self.iterations))
-        traj = {k: v.cpu().numpy() for k, v in traj.items()}
+            with profiling.wait("traj", len(traj)):
+                traj = {k: v.cpu().numpy() for k, v in traj.items()}
         self._traj_list.append(traj)
         self._assemble_hyperparams()
         elapsed = time.time() - start_time
@@ -332,7 +336,7 @@ class reconstructor:
             self.verbose = kwargs.get("verbose")
         if self.verbose:
             print("Calculating predictive mean and variance...", end=" ")
-        with self.timer.phase("predict", self.device):
+        with profiling.span("recon.predict"):
             # the device runs on NaN-cleaned coordinates; NaN rows are
             # restored afterwards (EI/POI acquisition relies on them)
             nan_rows = np.isnan(self.Xtest).any(axis=1)
@@ -341,8 +345,9 @@ class reconstructor:
             chunks, n_test = engine.chunk_rows(
                 np.nan_to_num(self.Xtest), chunk)
             mean, var = self._predict_chunks(self.u, self._tensor(chunks))
-            mean = mean.cpu().numpy()[:n_test]
-            sd = np.sqrt(var.cpu().numpy()[:n_test])
+            with profiling.wait("readback", 2):
+                mean = mean.cpu().numpy()[:n_test]
+                sd = np.sqrt(var.cpu().numpy()[:n_test])
         mean[nan_rows] = np.nan
         sd[nan_rows] = np.nan
         if self.verbose:
@@ -356,8 +361,9 @@ class reconstructor:
     def save_model(self, filename):
         """Persist trained hyperparameters (unconstrained + bounds) to an
         .npz in the layout gpim_tpu's save_model writes."""
-        flat = {("u_" + k): v.detach().cpu().numpy()
-                for k, v in self.u.items()}
+        with profiling.wait("checkpoint", len(self.u)):
+            flat = {("u_" + k): v.detach().cpu().numpy()
+                    for k, v in self.u.items()}
         flat.update({("b_" + k): np.asarray(v)
                      for k, v in self._bounds_np.items()})
         flat["kernel"] = np.asarray(self.kernel_type)

@@ -62,8 +62,7 @@ from gpim_tpu_torch.gpreg.kron_model import KronEngine
 from gpim_tpu_torch.kernels.transforms import (
     interval_inverse, positive_inverse)
 from gpim_tpu_torch.ops import kron_exact, ski
-from gpim_tpu_torch.utils import gridutils
-from gpim_tpu_torch.utils.profiling import Timer
+from gpim_tpu_torch.utils import gridutils, profiling
 
 __all__ = ["skreconstructor"]
 
@@ -182,7 +181,6 @@ class skreconstructor:
         self._set_data(X_np, y_np)
         self.hyperparams = {}
         self._traj_list = []
-        self.timer = Timer()
 
     def _tensor(self, x):
         return torch.as_tensor(np.asarray(x, _NP_DTYPE[self.dtype]),
@@ -280,7 +278,7 @@ class skreconstructor:
             print('Model training...')
         lr = float(self.learning_rate)
         iters = int(self.iterations)
-        with self.timer.phase("train", self.device):
+        with profiling.span("recon.train"):
             if self.kernel_type == "Spectral":
                 self.u, traj = structured.train_spectral(
                     self.u, self._Xd, self._yd, self._maskd, lr, self.jitter,
@@ -393,7 +391,7 @@ class skreconstructor:
             print('Calculating predictive mean and uncertainty...')
         nan_rows = np.isnan(self.Xtest).any(axis=1)
         Xtest_clean = np.nan_to_num(self.Xtest)
-        with self.timer.phase("predict", self.device):
+        with profiling.span("recon.predict"):
             if self._kron_engine is not None:
                 mean, var = self._kron_engine.predict(
                     {k: v[0] for k, v in self.u.items()}, self._Y_grid,

@@ -43,8 +43,7 @@ from gpim_tpu_torch.gpreg.gpr import _NP_DTYPE, _resolve_device
 from gpim_tpu_torch.kernels.transforms import (
     interval_inverse, positive_inverse)
 from gpim_tpu_torch.ops.prng import jax_normal
-from gpim_tpu_torch.utils import gridutils
-from gpim_tpu_torch.utils.profiling import Timer
+from gpim_tpu_torch.utils import gridutils, profiling
 
 __all__ = ["vreconstructor"]
 
@@ -154,7 +153,6 @@ class vreconstructor:
         self._set_data(X_np, Y_np)
         self.hyperparams = {}
         self._traj_list = []
-        self.timer = Timer()
 
     def _tensor(self, x):
         return torch.as_tensor(np.asarray(x, _NP_DTYPE[self.dtype]),
@@ -198,7 +196,7 @@ class vreconstructor:
             print('Model training...')
         kw = dict(kernel=self.kernel_type, iterations=int(self.iterations))
         lr = float(self.learning_rate)
-        with self.timer.phase("train", self.device):
+        with profiling.span("recon.train"):
             if self.independent and self._mesh is not None:
                 from gpim_tpu_torch.parallel import multichip
                 self.u, traj = multichip.train_step_sharded(
@@ -212,7 +210,7 @@ class vreconstructor:
                 self.u, traj = multi.train_correlated(
                     self.u, self._Xd, self._Yd, self._bounds(), lr,
                     self.jitter, **kw, **self._task_shard())
-        traj = {k: v.cpu().numpy() for k, v in traj.items()}
+            traj = {k: v.cpu().numpy() for k, v in traj.items()}
         self._traj_list.append(traj)
         self.hyperparams = {
             k: np.concatenate([t[k] for t in self._traj_list])
@@ -254,7 +252,7 @@ class vreconstructor:
         chunk = min(dtypes.round_up(max(target, 1), 128),
                     dtypes.round_up(len(self.Xtest), 128))
         chunks, n_test = engine.chunk_rows(np.nan_to_num(self.Xtest), chunk)
-        with self.timer.phase("predict", self.device):
+        with profiling.span("recon.predict"):
             mean, var = self._predict_chunks(self._tensor(chunks))
             mean = mean.cpu().numpy()[:n_test]
             var = var.cpu().numpy()[:n_test]

@@ -17,6 +17,7 @@ from gpim_tpu import utils as jutils
 import gpim_tpu_torch
 from gpim_tpu_torch.parallel.mesh import LocalMesh
 from gpim_tpu_torch import utils
+from gpim_tpu_torch.utils import profiling
 from test_torch_cuda_kernels import sd_cancellation_case
 
 KERNELS = ["RBF", "Matern52", "RationalQuadratic"]
@@ -200,17 +201,18 @@ def test_update_data_and_retrain():
     X, X_full = utils.get_sparse_grid(R), utils.get_full_grid(R)
     model = gpim_tpu_torch.reconstructor(X, R, X_full, iterations=2,
                                          verbose=0, use_gpu=False)
-    model.train()
-    R2 = R.copy()
-    for i, j in np.argwhere(np.isnan(R2))[:5]:
-        R2[i, j] = 0.5
-    model.update_data(utils.get_sparse_grid(R2), R2)
-    model.train()
+    with profiling.spans() as rec:
+        model.train()
+        R2 = R.copy()
+        for i, j in np.argwhere(np.isnan(R2))[:5]:
+            R2[i, j] = 0.5
+        model.update_data(utils.get_sparse_grid(R2), R2)
+        model.train()
     assert len(model.hyperparams["lengthscale"]) == 4
     assert len(model.losses) == 4
     mean, _ = model.predict()
     assert mean.shape == R.shape
-    assert model.timer.summary()["train"]["calls"] == 2
+    assert rec.summary()["recon.train"]["calls"] == 2
     assert_allclose(model.current_lengthscale(),
                     model.hyperparams["lengthscale"][-1], rtol=1e-12)
 

@@ -1,7 +1,7 @@
 """
 gpim_tpu_torch's host-side pieces: grid utilities against gpim_tpu.utils
 (the section-2.4 fixes pinned in test_gridutils.py), precision helpers,
-the phase timer and the trace, the masked-lattice engine's memory
+the span recorder's summary and the trace, the masked-lattice engine's memory
 accounting, parameter conversion, package settings, the kernel build
 recipe, and a static scan that the port imports no JAX.
 """
@@ -20,7 +20,8 @@ import gpim_tpu_torch
 from gpim_tpu_torch import convert, dtypes
 from gpim_tpu_torch.ops import _build, gram_kernels
 from gpim_tpu_torch.utils import gridutils as g
-from gpim_tpu_torch.utils.profiling import Timer, trace
+from gpim_tpu_torch.utils import profiling
+from gpim_tpu_torch.utils.profiling import trace
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "optax", "gpim_tpu", "matplotlib"}
@@ -174,16 +175,19 @@ def test_dtypes():
 
 
 def test_timer_records_first_and_warm_calls():
-    timer = Timer()
-    for _ in range(3):
-        with timer.phase("train", torch.device("cpu")):
+    """The recorder's per-name summary, which replaced the phase timer:
+    the first call apart from the mean of the warm ones."""
+    with profiling.spans() as rec:
+        for _ in range(3):
+            with profiling.span("recon.train"):
+                pass
+        with profiling.span("recon.predict"):
             pass
-    with timer.phase("predict"):
-        pass
-    s = timer.summary()
-    assert s["train"]["calls"] == 3 and s["train"]["warm_mean_s"] >= 0
-    assert s["predict"] == {"first_s": s["predict"]["first_s"],
-                            "warm_mean_s": None, "calls": 1}
+    s = rec.summary()
+    assert s["recon.train"]["calls"] == 3
+    assert s["recon.train"]["first_s"] >= 0 and s["recon.train"]["warm_s"] >= 0
+    assert s["recon.predict"] == {"calls": 1, "warm_s": None,
+                                  "first_s": s["recon.predict"]["first_s"]}
 
 
 def test_convert_from_numpy():
