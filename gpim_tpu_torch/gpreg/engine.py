@@ -39,7 +39,7 @@ from gpim_tpu_torch.kernels.transforms import (
 from gpim_tpu_torch.ops import gram_kernels
 from gpim_tpu_torch.ops.gram import pairwise_sq_dist
 from gpim_tpu_torch.ops.linalg import safe_cholesky, solve_triangular
-from gpim_tpu_torch.ops.tri import tri_inverse
+from gpim_tpu_torch.ops.tri import tri_gram, tri_inverse
 from gpim_tpu_torch.parallel.distributed import (
     all_reduce, copy_to_shards, reduce_from_shards)
 from gpim_tpu_torch.utils import profiling
@@ -200,7 +200,7 @@ class _NLLFast(torch.autograd.Function):
         ls, v, a_rq, X, mask, V, Kt, z = ctx.saved_tensors
         kernel = ctx.kernel
         alpha = (V.mT @ z[..., None])[..., 0]             # A^-1 (y . m)
-        Ainv = V.mT @ V
+        Ainv = tri_gram(V)
         d_alpha = None
         if kernel == "RBF":
             # one pass over Ainv and Kt computes every matrix reduction (K3)
@@ -270,7 +270,7 @@ class _MLLFromGram(torch.autograd.Function):
     def backward(ctx, g, _g_info):
         V, z, mask = ctx.saved_tensors
         alpha = V.T @ z                                   # A^-1 ym
-        Ainv = V.T @ V
+        Ainv = tri_gram(V)
         mm = mask[:, None] * mask[None, :]
         dK = (0.5 * g) * (Ainv - alpha[:, None] * alpha[None, :]) * mm
         dnoise = (0.5 * g) * ((torch.diagonal(Ainv) * mask).sum()

@@ -33,7 +33,7 @@ from gpim_tpu_torch.kernels.functional import get_kernel_fn, kernel_diag
 from gpim_tpu_torch.kernels.transforms import (
     interval_forward, interval_log_jacobian, positive_forward)
 from gpim_tpu_torch.ops.linalg import safe_cholesky
-from gpim_tpu_torch.ops.tri import tri_inverse
+from gpim_tpu_torch.ops.tri import tri_gram, tri_inverse
 from gpim_tpu_torch.parallel.distributed import (
     all_gather, all_reduce, reduce_from_shards)
 
@@ -250,7 +250,7 @@ class _KronMTCore(torch.autograd.Function):
         tasks = ctx.tasks
         lam_s, Qb_s = lam[tasks], Qb[:, tasks]
         V = tri_inverse(L)
-        Inv = V.mT @ V                                    # A_t^-1 (T_s, n, n)
+        Inv = tri_gram(V)                                 # A_t^-1 (T_s, n, n)
         del V
         tr_c = (Inv * Kx).sum(dim=(-2, -1))               # tr(A_t^-1 Kx)
         S = at @ (Kx @ at_all.mT)                         # (T_s, T)
