@@ -479,10 +479,14 @@ def adam_segments(u0, lr, iterations, build_precond, loss_iters,
     realized CG iterations (iterations,) on the device, segment lengths):
     the post-update parameters and the pre-update loss of every step, as
     :func:`adam_steps` records them; the Adam moments carry across
-    segments.
+    segments. Spans (:mod:`gpim_tpu_torch.utils.profiling`): ``adam.init``
+    around the optimizer's construction, ``ski.segment`` a segment (its
+    ``steps``), ``ski.precond`` its preconditioner build, ``adam.step`` a
+    step, and the wait ``segment`` around the one read.
     """
     u = {k: v.detach().clone().requires_grad_(True) for k, v in u0.items()}
-    opt = torch.optim.Adam(list(u.values()), lr=lr)
+    with profiling.span("adam.init"):
+        opt = torch.optim.Adam(list(u.values()), lr=lr)
     first = next(iter(u.values()))
     losses = torch.empty((iterations,), dtype=first.dtype,
                          device=first.device)
@@ -493,23 +497,27 @@ def adam_segments(u0, lr, iterations, build_precond, loss_iters,
     i, s_next = 0, 2
     while i < iterations:
         s = min(s_next, iterations - i)
-        precond = build_precond(u)
-        carry = None if carry0 is None else carry0()
-        for _ in range(s):
-            opt.zero_grad(set_to_none=True)
-            if carry0 is None:
-                loss, it = loss_iters(u, precond)
-            else:
-                loss, it, carry = loss_iters(u, precond, carry)
-            loss.backward()
-            opt.step()
-            with torch.no_grad():
-                losses[i], its[i] = loss, it
-                for k, v in u.items():
-                    u_traj[k][i] = v
-            i += 1
-        segments.append(s)
-        last_it = float(its[i - 1])                   # one read a segment
+        with profiling.span("ski.segment", steps=s):
+            with profiling.span("ski.precond"):
+                precond = build_precond(u)
+            carry = None if carry0 is None else carry0()
+            for _ in range(s):
+                with profiling.span("adam.step"):
+                    opt.zero_grad(set_to_none=True)
+                    if carry0 is None:
+                        loss, it = loss_iters(u, precond)
+                    else:
+                        loss, it, carry = loss_iters(u, precond, carry)
+                    loss.backward()
+                    opt.step()
+                    with torch.no_grad():
+                        losses[i], its[i] = loss, it
+                        for k, v in u.items():
+                            u_traj[k][i] = v
+                i += 1
+            segments.append(s)
+            with profiling.wait("segment"):
+                last_it = float(its[i - 1])           # one read a segment
         if last_it >= 16.0:
             s_next = max(2, s // 2)
         elif last_it <= 8.0:

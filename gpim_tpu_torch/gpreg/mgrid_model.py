@@ -19,7 +19,9 @@ the realized CG iterations, the schedule ``gpim_tpu`` runs
 (mgrid_model.py:596-642): a segment of 2 steps first, then twice as long
 (up to 10) while the last step needed at most 8 CG iterations, and
 half as long (at least 2) when it needed 16 or more. The host reads one
-value a segment for this.
+value a segment for this (the wait ``segment`` of
+:mod:`gpim_tpu_torch.utils.profiling`), and every step's realized
+iterations once after training (the wait ``cg_iters``).
 
 Prediction on a Cartesian test grid uses exact per-dimension
 cross-covariances and the Nystrom variance of the same eigen-root; scattered
@@ -60,6 +62,7 @@ from gpim_tpu_torch.gpreg import engine, ski_model
 from gpim_tpu_torch.gpreg.multi import _constrain_task as _constrain
 from gpim_tpu_torch.gpreg.ski_model import _kernel_params
 from gpim_tpu_torch.ops import kron_exact, ski
+from gpim_tpu_torch.utils import profiling
 
 __all__ = ["MaskedGridEngine", "detect_masked_lattice",
            "cartesian_axes_from_points"]
@@ -347,7 +350,8 @@ class MaskedGridEngine:
             p = _constrain(u_traj, bounds)
         traj = {"lengthscale": p["lengthscale"], "noise": p["noise"],
                 "loss": losses}
-        self.last_cg_iters = its.cpu().numpy()
+        with profiling.wait("cg_iters"):
+            self.last_cg_iters = its.cpu().numpy()
         self.last_segments = segments
         if record_cg_iters:
             traj["cg_iters"] = its

@@ -82,6 +82,7 @@ from gpim_tpu_torch.ops.linalg import safe_cholesky, solve_triangular
 from gpim_tpu_torch.ops.prng import jax_rademacher
 from gpim_tpu_torch.parallel.distributed import (
     all_gather, all_reduce, all_to_all)
+from gpim_tpu_torch.utils import profiling
 
 __all__ = [
     "grid_kernel_factors", "kron_mvm_bf", "GridShard", "kron_shardable",
@@ -540,7 +541,9 @@ def batched_pcg(mvm, pinv, B, iters, return_iters=False, vec_axis=0,
 
     ``iters`` is a cap: ``gpim_tpu``'s while_loop stops once every column
     is frozen. Here the host reads that only every
-    ``CG_EXIT_CHECK_EVERY`` iterations; an iteration after every column froze writes alpha = 0,
+    ``CG_EXIT_CHECK_EVERY`` iterations (the wait ``cg_exit`` of
+    :mod:`gpim_tpu_torch.utils.profiling`); an iteration after every
+    column froze writes alpha = 0,
     beta = 0, t_diag = 1 and t_off = 0, so X, R, P and the tridiagonals do
     not change and the outputs are those of an exit test every iteration.
     The realized count (the while_loop's trip count) is counted on the
@@ -571,8 +574,11 @@ def batched_pcg(mvm, pinv, B, iters, return_iters=False, vec_axis=0,
     k_real = torch.zeros((), dtype=torch.int64, device=B.device)
     zero, one = torch.zeros_like(rz), torch.ones_like(rz)
     for k in range(iters):
-        if k and k % CG_EXIT_CHECK_EVERY == 0 and bool(done.all()):
-            break
+        if k and k % CG_EXIT_CHECK_EVERY == 0:
+            with profiling.wait("cg_exit"):
+                finished = bool(done.all())
+            if finished:
+                break
         live = ~done
         k_real += live.any()
         AP = mvm(P)
@@ -937,19 +943,23 @@ def make_grid_predictor(kernel, grids, grid_shape, cg_iters, precond_rank,
     LOVE variance of ``lanczos_rank`` Lanczos steps
     (:func:`mgrid_solve_core`). With a :class:`GridShard` the solve is
     sharded; the test axes are the caller's. ``predict.cg_iters`` holds
-    the last call's realized CG iterations."""
+    the last call's realized CG iterations. The spans
+    ``ski.predict.solve`` and ``ski.predict.var`` wait for the card only
+    at CG's exit checks."""
     def predict(p, noise_pj, mask_flat, yc_flat, t_axes, kss):
-        sol = mgrid_solve_core(
-            kernel, p, grids, grid_shape, mask_flat, precond_rank,
-            cg_iters, noise_pj, yc_flat, shard, lanczos_rank, seed)
+        with profiling.span("ski.predict.solve"):
+            sol = mgrid_solve_core(
+                kernel, p, grids, grid_shape, mask_flat, precond_rank,
+                cg_iters, noise_pj, yc_flat, shard, lanczos_rank, seed)
         predict.cg_iters = sol.cg_iters
         C_list = grid_cross_factors(kernel, p, grids, t_axes)
         mean = modeprod(C_list, sol.am).reshape(-1)
-        if sol.T is not None:
-            return mean, grid_love_var(C_list, sol.MQ, sol.T,
-                                       kss).clamp_min(0.0)
-        var = grid_nystrom_var([C @ s for C, s in zip(C_list, sol.sel)],
-                               sol.Bmat, kss)
+        with profiling.span("ski.predict.var"):
+            if sol.T is not None:
+                return mean, grid_love_var(C_list, sol.MQ, sol.T,
+                                           kss).clamp_min(0.0)
+            var = grid_nystrom_var([C @ s for C, s in zip(C_list, sol.sel)],
+                                   sol.Bmat, kss)
         return mean, var
     return predict
 

@@ -4,10 +4,13 @@ The span recorder and the device-wait counter of
 nothing; on, spans nested by their parents, the per-name summary, the
 spans as the profiler's annotations; the wait counts of a reconstruction
 job, of a Bayesian-optimisation step and inside every Adam step, pinned
-as exact integers; and the readers of ``tools/span_report.py`` on small
-CPU runs of the benchmark's loops. On the card, every K2/K3 kernel of a
-profiled job falls under an ``adam.step`` annotation and no span adds a
-device event.
+as exact integers; the masked-lattice SKI engine's segments,
+preconditioner builds, CG exit checks and prediction, with answers
+bit-equal with the recorder on and off; and the readers of
+``tools/span_report.py`` on small CPU runs of the benchmark's loops. On
+the card, every K2/K3 kernel of a profiled job falls under an
+``adam.step`` annotation, and no span adds a device event to an exact or
+a masked-lattice job.
 
 The tests marked ``cuda`` need a CUDA device and skip without one. The file
 imports no JAX, so it runs on a machine without it:
@@ -266,6 +269,95 @@ def test_a_campaign_counts_its_read_backs_at_the_end(tmp_path):
 
 
 # --------------------------------------------------------------------------
+# The masked-lattice SKI engine
+# --------------------------------------------------------------------------
+
+def _cube(shape=(8, 7, 5), seed=4):
+    """A smooth cube with noise and half of its (x, y) spectra removed."""
+    rng = np.random.RandomState(seed)
+    x, y, z = np.meshgrid(*[np.arange(s, dtype=np.float64) for s in shape],
+                          indexing="ij")
+    R = np.sin(x / 3.0) * np.cos(y / 4.0) + 0.3 * np.sin(z / 2.0)
+    R = R + 0.02 * rng.randn(*shape)
+    sites = rng.choice(shape[0] * shape[1], shape[0] * shape[1] // 2,
+                       replace=False)
+    R.reshape(-1, shape[2])[sites] = np.nan
+    return R
+
+
+def _ski_job(R, recorder, device=CPU, **kw):
+    """A masked-lattice job (constructor, train, predict); returns (the
+    model, mean, sd, the recorder or None)."""
+    with profiling.spans() if recorder else contextlib.nullcontext() as rec:
+        model = gpim_tpu_torch.skreconstructor(
+            utils.get_sparse_grid(R), R, utils.get_full_grid(R),
+            kernel="RBF", ski=True, learning_rate=0.1, iterations=12,
+            use_gpu=device.type == "cuda", verbose=0, ski_min_points=1,
+            precond_rank=16, **kw)
+        mean, sd = model.run()[:2]
+    assert model._mgrid_engine is not None
+    return model, mean, sd, rec
+
+
+def _exit_checks(realized, cap=64):
+    """The host reads of CG's exit test in a solve of ``realized``
+    iterations under ``cap``: one every CG_EXIT_CHECK_EVERY iterations
+    until the first that finds every column converged."""
+    from gpim_tpu_torch.ops.ski import CG_EXIT_CHECK_EVERY as every
+    return min(max(1, -(-int(realized) // every)), (cap - 1) // every)
+
+
+def test_ski_spans_nest_and_count_the_reads():
+    """A masked-lattice job: the optimizer's construction, every segment
+    (with its steps), its preconditioner build, its Adam steps and its one
+    read nest under ``recon.train``, the CG exit checks inside the steps,
+    the read of the realized iterations after the segments, and the
+    prediction's solve and variance under ``recon.predict``; the waits
+    are the reads that the realized CG iterations imply."""
+    model, _, _, rec = _ski_job(_cube(), True)
+    eng = model._mgrid_engine
+    segments, its = eng.last_segments, eng.last_cg_iters
+    by_id = {s.id: s for s in rec.spans}
+
+    def parent(s):
+        return by_id[s.parent].name if s.parent is not None else None
+    (train,) = [s for s in rec.spans if s.name == "recon.train"]
+    assert train.attrs == {}
+    kids = [s for s in rec.spans if s.parent == train.id]
+    assert [s.name for s in kids] == (["adam.init"]
+                                      + ["ski.segment"] * len(segments)
+                                      + ["wait.cg_iters"])
+    assert [s.attrs["steps"] for s in kids[1:-1]] == segments
+    for seg in kids[1:-1]:
+        inner = [s.name for s in rec.spans if s.parent == seg.id]
+        assert inner == (["ski.precond"] + ["adam.step"] * seg.attrs["steps"]
+                         + ["wait.segment"])
+    assert {parent(s) for s in rec.spans if s.name == "wait.cg_exit"} == {
+        "adam.step", "ski.predict.solve"}
+    (solve,) = [s for s in rec.spans if s.name == "ski.predict.solve"]
+    (var,) = [s for s in rec.spans if s.name == "ski.predict.var"]
+    assert parent(solve) == parent(var) == "recon.predict"
+    assert solve.attrs == var.attrs == {}
+    assert rec.counts == {
+        "upload": 2, "segment": len(segments), "cg_iters": 1,
+        "cg_exit": sum(_exit_checks(c) for c in its)
+        + _exit_checks(eng.last_predict_cg_iters)}
+
+
+def test_ski_answers_are_bit_equal_with_the_recorder_on_and_off():
+    R = _cube(seed=6)
+    off, mean0, sd0, _ = _ski_job(R, False)
+    on, mean1, sd1, _ = _ski_job(R, True)
+    np.testing.assert_array_equal(mean0, mean1)
+    np.testing.assert_array_equal(sd0, sd1)
+    for k in ("lengthscale", "noise"):
+        np.testing.assert_array_equal(off.hyperparams[k], on.hyperparams[k])
+    np.testing.assert_array_equal(off.losses, on.losses)
+    np.testing.assert_array_equal(off._mgrid_engine.last_cg_iters,
+                                  on._mgrid_engine.last_cg_iters)
+
+
+# --------------------------------------------------------------------------
 # The readers of tools/span_report.py
 # --------------------------------------------------------------------------
 
@@ -429,3 +521,37 @@ def test_kernels_fall_under_adam_steps_and_spans_add_no_device_event(
     for name in ("masked_system_kernel", "rbf_bwd_kernel"):
         assert [sum(n for k, n in seen[on].items() if name in k)
                 for on in (False, True)] == [5, 5]
+
+
+@pytest.mark.cuda
+def test_ski_spans_add_no_device_event(dev, tmp_path):
+    """A profiled masked-lattice job on the card (float32, 24x24x16, half
+    the spectra left out): with the recorder on it runs no device
+    operation that it does not run with the recorder off, and as many K1
+    kernels; the training's realized CG iterations are the same. (The
+    profiler can lose the first few device events of a window, so events
+    missing from one side are not compared.)"""
+    from torch.profiler import ProfilerActivity, profile
+    R = _cube((24, 24, 16), seed=8)
+    _ski_job(R, False, dev, precision="single")    # handles, first Adam
+    kinds = ("kernel", "gpu_memcpy", "gpu_memset")
+    seen, its = {}, {}
+    for on in (False, True):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(profiling.EDGE_S)
+            model = _ski_job(R, on, dev, precision="single")[0]
+            torch.cuda.synchronize()
+            time.sleep(profiling.EDGE_S)
+        its[on] = model._mgrid_engine.last_cg_iters.tolist()
+        path = tmp_path / ("%d.json" % on)
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        seen[on] = collections.Counter(e["name"] for e in events
+                                       if e.get("cat") in kinds)
+    assert its[True] == its[False]
+    assert not seen[True] - seen[False], seen[True] - seen[False]
+    k1 = [sum(n for k, n in seen[on].items() if "sqdist_kernel" in k)
+          for on in (False, True)]
+    assert k1[0] == k1[1] > 0, k1

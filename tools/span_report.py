@@ -53,7 +53,7 @@ __all__ = ["READERS", "SPANNED", "run_spanned", "main"]
 
 # the program's span names start with these (torch.optim's own
 # record_function ranges are left out)
-PROGRAM_PREFIXES = ("recon.", "engine.", "adam.", "predict.", "bo.",
+PROGRAM_PREFIXES = ("recon.", "engine.", "adam.", "predict.", "bo.", "ski.",
                     "wait.")
 _OUTSIDE = "outside program spans"
 _TOP = 10
