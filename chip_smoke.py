@@ -255,6 +255,7 @@ TIMING_REPS = 50
 # NVIDIA H100 SXM data sheet: HBM3 rate, and peaks outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
+SMS = 132                    # K5's bound is one SM's share of the peak
 SOURCE = "gpim_tpu_torch/csrc/gram_kernels.cu"
 # Normalized max error |kernel - plain_f64| / scale, set beforehand from
 # the rounding of each kernel's arithmetic (see gram_kernels docstrings).
@@ -265,6 +266,9 @@ TOL = {
     # normalized by the largest sum of |w v| over a cell: a sum of a few
     # f32 products, each product and sum rounded once
     "interp_adjoint": {"float32": 1e-6, "float64": 1e-12},
+    # normalized by the largest entry of L or of V (K5 against its plain
+    # version in float64; in float32 also four times the library pair's gap)
+    "chol_inverse": {"float32": 1e-5, "float64": 1e-13},
 }
 # the kernels, in the order of the kernels line
 KERNELS = ("sqdist", "masked_system", "rbf_bwd_reductions", "interp_adjoint")
@@ -1188,6 +1192,52 @@ def _batched_cases(eels64, dname, timed):
     return out
 
 
+def _chol_inverse_case(A, dname, timed):
+    """K5 (``chol_inverse``) on the SPD system ``A`` against its plain
+    version in float64: the largest gap of L and of V over their largest
+    entry, held to the tolerance or, in float32, to four times the library
+    pair's own gap (``cholesky_ex``, ``solve_triangular``) where that is
+    larger, since both round alike with the system's condition number.
+    When ``timed``: ms a call by a CUDA graph of calls beside the plain
+    version's (a warm loop), the library pair's (a graph) and K5's bound,
+    one SM for 2 n^3 / 3 operations at the SM's share of the card's peak."""
+    import torch
+    from gpim_tpu_torch.ops import gram_kernels as gk
+    n = A.shape[-1]
+
+    def library():
+        L, _ = torch.linalg.cholesky_ex(A)
+        eye = torch.eye(n, dtype=A.dtype, device=A.device)
+        return L, torch.linalg.solve_triangular(L, eye, upper=False)
+
+    L, V, info = gk.chol_inverse(A)
+    L_ref, V_ref, _ = gk.chol_inverse_plain(A.double())
+    gaps = [_norm_err(x, ref, ref.abs().max()) for x, ref in
+            ((L, L_ref), (V, V_ref))]
+    lib = [_norm_err(x, ref, ref.abs().max())[1] for x, ref in
+           zip(library(), (L_ref, V_ref))]
+    err, nerr = max(g[0] for g in gaps), max(g[1] for g in gaps)
+    allowed = max(TOL["chol_inverse"][dname], 4 * max(lib))
+    log("[kernels] chol_inverse        %-7s n = %d, max_abs_err %.3e  "
+        "normalized %.3e (library pair %.3e)  allowed %.1e  %s"
+        % (dname, n, err, nerr, max(lib), allowed,
+           "ok" if nerr <= allowed and not info.item() else "FAIL"))
+    if nerr > allowed or info.item():
+        raise AssertionError("chol_inverse %s disagrees with its plain "
+                             "version: %.3e > %.1e (info %d)"
+                             % (dname, nerr, allowed, info.item()))
+    rec = {"err": err, "shape": [n, n]}
+    if timed:
+        rec["ms"] = _time_graph_ms(lambda: gk.chol_inverse(A))
+        rec["loop_ms"] = _time_ms(lambda: gk.chol_inverse(A))
+        rec["plain_ms"] = _time_ms(lambda: gk.chol_inverse_plain(A), 5)
+        rec["library_ms"] = _time_graph_ms(library)
+        ops = 2.0 * n ** 3 / 3
+        rec["bound"] = (ops / (PEAK_OPS_PER_S[dname] / SMS) * 1e3,
+                        "operations")
+    return rec
+
+
 def phase_kernels(R, X, X_full, vfe, eels64, ckpfm):
     """Each kernel against its plain version at the flagship's shapes, at
     the BO paths' and at quickstart.ipynb's, batched at eels64's and at one task-sharded rank's
@@ -1305,7 +1355,11 @@ def phase_kernels(R, X, X_full, vfe, eels64, ckpfm):
                                njt, dname)
         rec["rbf_bwd_reductions"]["bo_shapes"] = {
             "bo25": {"err": err, "shape": shape}}
-        del bo
+        # K5 on bo25's padded training system
+        A = gk.masked_system(bo["Xs"], bo["mask"], vt, njt,
+                             kernel="RBF")[1]
+        rec["chol_inverse"] = _chol_inverse_case(A, dname, timed)
+        del bo, A
         # every kernel at the shapes quickstart.ipynb gives it
         qs = _quickstart_kernel_inputs(dtype)
         log("[kernels] quickstart shapes: training rows n = %d (%d "
@@ -3981,6 +4035,20 @@ def kernel_records(kreport, paths):
                             "bound_share": v["bound"][0] / v["ms"],
                             "library_ms": v["library_ms"]}
                     for label, v in r[key].items()}
+    # K5 (no Pallas counterpart; the library pair at n <= 128), timed on
+    # bo25's padded system; its launches are not among the paths' counts
+    r = kreport["chol_inverse"]
+    out.append({
+        "name": "chol_inverse", "route": "cuda", "source": SOURCE,
+        "replaces": "torch.linalg.cholesky_ex + solve_triangular(L, I) at "
+                    "n <= 128",
+        "shape": r["shape"], "max_abs_err": r["err"], "ms": r["ms"],
+        "loop_ms": r["loop_ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+        "bound_share": r["bound"][0] / r["ms"],
+        "library_ms": r["library_ms"],
+        "library": "cholesky_ex then solve_triangular(L, I), the pair "
+                   "this kernel replaced"})
     return out
 
 

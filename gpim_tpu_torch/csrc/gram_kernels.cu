@@ -7,6 +7,8 @@
 // K3 rbf_bwd         the reductions of the closed-form RBF MLL backward
 // K4 interp_adjoint  W^T v of the off-lattice SKI operator, a CSR segmented
 //                    sum in a fixed order (no Pallas counterpart)
+// K5 chol_inverse     the Cholesky factor L of an SPD matrix of order <= 128
+//                    and L^-1, one block a matrix (no Pallas counterpart)
 //
 // K1-K3 take a leading task axis (T independent problems in one
 // launch, the batch that gpim_tpu's vmap over output channels gives its
@@ -16,11 +18,12 @@
 // unbatched call is T = 1. Offsets are int64: at T = 64 and n = 2048 one
 // (T, n, n) tensor holds 2.7e8 elements.
 //
-// Every kernel is an elementwise-plus-reduction pass with d <= 8 features
-// (K4 a sum of a few weighted rows a cell), so none has a tensor-core
-// product to win: K1 and K2 are bound by the bytes they write, K3 and K4 by
-// the bytes they read. The designs keep those accesses
-// coalesced and touch every output or input element exactly once.
+// K1-K4 are elementwise-plus-reduction passes with d <= 8 features (K4 a
+// sum of a few weighted rows a cell), so none has a tensor-core product to
+// win: K1 and K2 are bound by the bytes they write, K3 and K4 by the bytes
+// they read. The designs keep those accesses coalesced and touch every
+// output or input element exactly once. K5 is a small dense factorisation
+// held in one SM's shared memory (see its section).
 //
 // Plain C interface (loaded with ctypes), one entry point per kernel and
 // dtype. Each entry point launches on the caller's stream, never
@@ -982,6 +985,379 @@ int launch_interp_adjoint(const int* rowptr, const int* src, const T* w,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// K5: the Cholesky factor of a small SPD matrix and its inverse, one block a
+// matrix (no Pallas counterpart: gpim_tpu factors with XLA's Cholesky and
+// triangular solve, gpim_tpu/ops/linalg.py, gpim_tpu/ops/tri.py). It
+// replaces cholesky_ex (cuSOLVER's getrf_wo_pivot) and
+// solve_triangular(L, I) (cuBLAS's trsm) at n <= 128, BO's padded order,
+// where the pair took ~90 us a call for 2 n^3 / 3 = 1.4 MFLOP in float64:
+// two library launches, each a few blocks that wait on each other.
+//
+// A float64 matrix of order 128 (128 KB) fits in one SM's shared memory,
+// so one block factors it and inverts the factor without touching device
+// memory in between. Bound on one SM by the n sequential pivots (a shuffle,
+// a reciprocal square root and an FMA each) and by the n^3 / 3 FMAs of the
+// trailing updates on the SM's FP64 (FP32) lanes. The design:
+//
+// - A, padded to np = a multiple of 16 with the identity (so its factor
+//   and inverse are diag(L, I) and diag(V, I), exactly), lives in shared
+//   memory M. Only its lower triangle is read, as cholesky_ex reads it,
+//   all of it in one round of loads (64 a thread at n = 128).
+// - Right-looking, by panels of 16 columns. Warp 0 factors a panel's
+//   16 x 16 diagonal block L_pp, a lane a row, passing each pivot on ahead
+//   of the block's other updates (the pivot row's own update comes first);
+//   the block's columns go to PT (k-major, two buffers) for the other rows,
+//   the reciprocal pivots to rinv. L leaves a panel at a time, from PT,
+//   row by row.
+// - Then, a thread a right-hand side (np of them, so 4 warps share the
+//   reads of L_pp), two triangular solves with L_pp: the rows below the
+//   block (L_r = A_r L_pp^-T) and row block p of V = L^-1 (L_pp^-1 B_p, B_p
+//   what the earlier panels left in the row block, the identity in its
+//   diagonal block). That row block of V is final, and goes out at once.
+// - One trailing update then serves both factors. Below the panel, row r
+//   loses sum_k P[r][k] Q[c][k] in every column c <= r: for c right of the
+//   panel Q = P (the Cholesky's Schur complement), for c up to the panel's
+//   last column Q^T = row block p of V (the inverse's elimination, the
+//   panel's own columns starting from zero). 16 threads a 16 x 16 tile,
+//   4 x 4 register tiles, the operands read as 4-vectors from shared
+//   memory. Warps 0 and 4, which share a scheduler, update the next
+//   panel's diagonal block first (1 x 4 register tiles), and warp 0
+//   factors it with the scheduler to itself, while the six other warps
+//   write the panel's columns of L and update the rest (look-ahead).
+// - Each matrix has a second block, on another SM, that writes the zeros
+//   above the diagonals of L and V: half of the bytes the card would
+//   otherwise drain from the first block's SM.
+//
+// info has cholesky_ex's meaning: 0, or the 1-based order of the first
+// leading minor whose pivot is not > 0 (NaN included). After a failure L
+// and V hold whatever the arithmetic left. Every product is in the input's
+// precision: fma in T, no tensor cores, no TF32.
+// ---------------------------------------------------------------------------
+constexpr int kCholNB = 16;         // panel width
+constexpr int kCholMaxN = 128;      // largest order
+constexpr int kCholThreads = 256;   // 8 warps
+
+__device__ __forceinline__ float drsqrt(float x) { return rsqrtf(x); }
+__device__ __forceinline__ double drsqrt(double x) { return rsqrt(x); }
+
+// 4 consecutive elements of shared memory as two 8-byte (float) or 16-byte
+// (double) accesses: rows of M start on such a boundary
+template <typename T>
+__device__ __forceinline__ void lds4(const T* p, T (&x)[4]) {
+  if constexpr (sizeof(T) == 4) {
+    const float2 u = reinterpret_cast<const float2*>(p)[0];
+    const float2 v = reinterpret_cast<const float2*>(p)[1];
+    x[0] = u.x;
+    x[1] = u.y;
+    x[2] = v.x;
+    x[3] = v.y;
+  } else {
+    const double2 u = reinterpret_cast<const double2*>(p)[0];
+    const double2 v = reinterpret_cast<const double2*>(p)[1];
+    x[0] = u.x;
+    x[1] = u.y;
+    x[2] = v.x;
+    x[3] = v.y;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void sts4(T* p, const T (&x)[4]) {
+  if constexpr (sizeof(T) == 4) {
+    reinterpret_cast<float2*>(p)[0] = make_float2(x[0], x[1]);
+    reinterpret_cast<float2*>(p)[1] = make_float2(x[2], x[3]);
+  } else {
+    reinterpret_cast<double2*>(p)[0] = make_double2(x[0], x[1]);
+    reinterpret_cast<double2*>(p)[1] = make_double2(x[2], x[3]);
+  }
+}
+
+// Warp 0: factor the diagonal block at (k0, k0) of M in registers, lane
+// rho (and its shadow rho + 16) row k0 + rho. The block's columns go to
+// PT (PT[j * ps + k0 + rho]), the reciprocal pivots to rinv; fail keeps
+// the first failing pivot's order.
+template <typename T>
+__device__ __forceinline__ void chol_diag(const T* __restrict__ M, int ld,
+                                          T* __restrict__ PT,
+                                          T* __restrict__ rinv, int ps,
+                                          int k0, int lane, int& fail) {
+  constexpr int NB = kCholNB;
+  constexpr unsigned kAll = 0xffffffffu;
+  const int rho = lane % NB;
+  T a[NB];
+#pragma unroll
+  for (int q = 0; q < NB; q += 4) {
+    T t[4];
+    lds4(M + (k0 + rho) * ld + k0 + q, t);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) a[q + u] = t[u];
+  }
+  T d = __shfl_sync(kAll, a[0], 0);
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    if (!(d > T(0)) && fail == 0) fail = k0 + j + 1;
+    const T r = drsqrt(d);
+    const T l = rho > j ? a[j] * r : (rho == j ? d * r : a[j]);
+    a[j] = l;
+    // the next pivot first: row j + 1's own update of its diagonal, the
+    // same fma as the update below gives it
+    if (j + 1 < NB) d = __shfl_sync(kAll, fma(-l, l, a[j + 1]), j + 1);
+    if (lane < NB) PT[j * ps + k0 + lane] = l;
+    if (lane == 0) rinv[k0 + j] = r;
+    __syncwarp();
+#pragma unroll
+    for (int c = j + 1; c < NB; ++c) {
+      a[c] = fma(-l, PT[j * ps + k0 + c], a[c]);
+    }
+  }
+}
+
+// x = L_pp^-1 x for the factored diagonal block at k0 (columns in PT, the
+// reciprocal pivots in rinv), by forward substitution
+template <typename T>
+__device__ __forceinline__ void chol_solve(const T* __restrict__ PT,
+                                           const T* __restrict__ rinv,
+                                           int ps, int k0,
+                                           T (&x)[kCholNB]) {
+  constexpr int NB = kCholNB;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    x[j] *= rinv[k0 + j];
+    // L_pp[jj][j], jj > j, four at a time from a 4-aligned start
+#pragma unroll
+    for (int q = (j + 1) / 4 * 4; q < NB; q += 4) {
+      T col[4];
+      lds4(PT + j * ps + k0 + q, col);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (q + u > j) x[q + u] = fma(-x[j], col[u], x[q + u]);
+      }
+    }
+  }
+}
+
+// The trailing update of one R x 4 register tile (R = 1 or 4; thread sub
+// of 16 * 4 / R) of the 16 x 16 tile (bi, bj) below panel k0 .. t0 - 1
+// (module comment); register tiles wholly above the diagonal are skipped.
+template <typename T, int R>
+__device__ __forceinline__ void chol_tile(T* __restrict__ M, int ld,
+                                          const T* __restrict__ PT, int ps,
+                                          int k0, int bi, int bj, int sub) {
+  constexpr int NB = kCholNB;
+  const int t0 = k0 + NB;
+  const int r0 = bi * NB + sub / 4 * R;
+  const int c0 = bj * NB + sub % 4 * 4;
+  if (c0 > r0 + R - 1) return;
+  T acc[R][4];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (c0 >= k0 && c0 < t0) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = T(0);
+    } else {
+      lds4(M + (r0 + i) * ld + c0, acc[i]);
+    }
+  }
+  const T* bsrc = c0 < t0 ? M + k0 * ld + c0 : PT + c0;
+  const int bstride = c0 < t0 ? ld : ps;
+#pragma unroll
+  for (int k = 0; k < NB; ++k) {
+    T av[R];
+    T bv[4];
+    if constexpr (R == 4) {
+      lds4(PT + k * ps + r0, av);
+    } else {
+      av[0] = PT[k * ps + r0];
+    }
+    lds4(bsrc + k * bstride, bv);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fma(-av[i], bv[j], acc[i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) sts4(M + (r0 + i) * ld + c0, acc[i]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kCholThreads, 1)
+    chol_inverse_kernel(const T* __restrict__ A, T* __restrict__ L,
+                        T* __restrict__ V, int* __restrict__ info, int n) {
+  constexpr int NB = kCholNB;
+  extern __shared__ __align__(16) unsigned char chol_smem[];
+  T* M = reinterpret_cast<T*>(chol_smem);
+  const int np = (n + NB - 1) / NB * NB;
+  const int ld = np + 2;            // rows 16-byte aligned, 2 banks apart
+  // two panel buffers, k-major, rows ps apart: a row's 16 values in 16
+  // (float) or 8 (double) banks
+  const int ps = np + 2;
+  T* PT0 = M + np * ld;
+  T* rinv = PT0 + 2 * NB * ps;      // the reciprocal pivots
+  const int64_t off = static_cast<int64_t>(blockIdx.x / 2) * n * n;
+  A += off;
+  L += off;
+  V += off;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  if (blockIdx.x % 2) {
+    // the helper block of the matrix, on another SM: the zeros above the
+    // diagonals of L and V, half of their bytes
+    for (int r = tid / 32; r < n; r += kCholThreads / 32) {
+      for (int c = r + 1 + lane; c < n; c += 32) {
+        L[r * n + c] = T(0);
+        V[r * n + c] = T(0);
+      }
+    }
+    return;
+  }
+  {
+    // warp w loads rows w, w + 8, ..., lane columns lane + 32 q: every load
+    // in flight at once
+    constexpr int kRows = kCholMaxN / (kCholThreads / 32);
+    constexpr int kCols = kCholMaxN / 32;
+    const int warp = tid / 32;
+    T v[kRows][kCols];
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) {
+      const int r = warp + kCholThreads / 32 * u;
+#pragma unroll
+      for (int q = 0; q < kCols; ++q) {
+        const int c = lane + 32 * q;
+        v[u][q] = r < n && c <= r ? A[r * n + c] : T(r == c ? 1 : 0);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) {
+      const int r = warp + kCholThreads / 32 * u;
+#pragma unroll
+      for (int q = 0; q < kCols; ++q) {
+        const int c = lane + 32 * q;
+        if (r < np && c < np) M[r * ld + c] = v[u][q];
+      }
+    }
+  }
+  __syncthreads();
+  int fail = 0;
+  const int blocks = np / NB;
+  if (tid < 32) chol_diag(M, ld, PT0, rinv, ps, 0, lane, fail);
+  __syncthreads();
+  for (int p = 0; p < blocks; ++p) {
+    const int k0 = p * NB;
+    const int t0 = k0 + NB;
+    T* PT = PT0 + (p & 1) * NB * ps;          // panel p
+    T* PTn = PT0 + ((p + 1) & 1) * NB * ps;   // panel p + 1
+    const int below = np - t0;
+    if (tid < np) {
+      // a thread a right-hand side: the panel's rows below its diagonal
+      // block, then the columns of row block p of V (final, so written
+      // out)
+      const int row = t0 + tid;
+      const int c = tid - below;
+      T x[NB];
+      if (tid < below) {
+#pragma unroll
+        for (int q = 0; q < NB; q += 4) {
+          T t[4];
+          lds4(M + row * ld + k0 + q, t);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) x[q + u] = t[u];
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < NB; ++k) {
+          x[k] = c < k0 ? M[(k0 + k) * ld + c] : T(c - k0 == k ? 1 : 0);
+        }
+      }
+      chol_solve(PT, rinv, ps, k0, x);
+      if (tid < below) {
+#pragma unroll
+        for (int j = 0; j < NB; ++j) PT[j * ps + row] = x[j];
+      } else {
+#pragma unroll
+        for (int k = 0; k < NB; ++k) {
+          M[(k0 + k) * ld + c] = x[k];
+          if (c < n && k0 + k < n && c <= k0 + k) {
+            V[(k0 + k) * n + c] = x[k];
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (tid < 32 || tid / 32 == kCholThreads / 64) {
+      if (t0 < np) {
+        // look-ahead: warps 0 and 4 (warp w runs on scheduler w % 4)
+        // update the next diagonal block; warp 0 then factors it, with
+        // the scheduler to itself
+        chol_tile<T, 1>(M, ld, PT, ps, k0, p + 1, p + 1, tid % 32 +
+                        (tid < 32 ? 0 : 32));
+        asm volatile("bar.sync 1, 64;" ::: "memory");
+        if (tid < 32) chol_diag(M, ld, PTn, rinv, ps, t0, lane, fail);
+      }
+    } else {
+      // the six warps of the other three schedulers: panel p's columns of
+      // L below the diagonal from PT, row by row (coalesced), then the
+      // other tiles (bi, bj), bj <= bi, bi > p, by rows
+      const int t = tid < kCholThreads / 2 ? tid - 32 : tid - 64;
+      for (int e = t; e < (n - k0) * NB; e += kCholThreads - 64) {
+        const int row = k0 + e / NB;
+        const int j = e % NB;
+        if (row >= k0 + j) L[row * n + k0 + j] = PT[j * ps + row];
+      }
+      const int tiles = t0 < np
+          ? (blocks * (blocks + 1) - (p + 1) * (p + 2)) / 2 : 0;
+      for (int w = t / NB; w < tiles; w += (kCholThreads - 64) / NB) {
+        int bi = p + 1;
+        int bj = w;
+        while (bj > bi) {
+          bj -= bi + 1;
+          ++bi;
+        }
+        if (bi != p + 1 || bj != p + 1) {
+          chol_tile<T, 4>(M, ld, PT, ps, k0, bi, bj, tid % NB);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (tid == 0) info[blockIdx.x / 2] = fail;
+}
+
+template <typename T>
+constexpr size_t chol_smem_bytes(int np) {
+  return static_cast<size_t>((np + 2 * kCholNB) * (np + 2) + np) *
+         sizeof(T);
+}
+
+template <typename T>
+int launch_chol_inverse(const T* A, T* L, T* V, int* info, int n,
+                        int64_t batch, void* stream) {
+  if (n < 1 || n > kCholMaxN || batch < 0 || batch > 0x3fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (batch == 0) return static_cast<int>(cudaGetLastError());
+  // more than 48 KB of shared memory only once the kernel is allowed it,
+  // once a device
+  static unsigned long long allowed = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64 || !((allowed >> dev) & 1ULL)) {
+    err = cudaFuncSetAttribute(
+        chol_inverse_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(chol_smem_bytes<T>(kCholMaxN)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 64) allowed |= 1ULL << dev;
+  }
+  const int np = (n + kCholNB - 1) / kCholNB * kCholNB;
+  chol_inverse_kernel<T>
+      <<<static_cast<unsigned>(2 * batch), kCholThreads,
+         chol_smem_bytes<T>(np),
+         static_cast<cudaStream_t>(stream)>>>(A, L, V, info, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1069,6 +1445,19 @@ int gpim_interp_adjoint_f64(const int* rowptr, const int* src,
                             int64_t G, int64_t n, int b, void* stream) {
   return launch_interp_adjoint<double>(rowptr, src, w, v, lcptr, wrun, offs,
                                        runs, out, G, n, b, stream);
+}
+
+// K5: L, V = L^-1 and info for each of batch matrices A of order n <= 128,
+// laid out one after another; only A's lower triangle is read. L and V are
+// written whole (zeros above the diagonal), info one int a matrix.
+int gpim_chol_inverse_f32(const float* A, float* L, float* V, int* info,
+                          int n, int64_t batch, void* stream) {
+  return launch_chol_inverse<float>(A, L, V, info, n, batch, stream);
+}
+
+int gpim_chol_inverse_f64(const double* A, double* L, double* V, int* info,
+                          int n, int64_t batch, void* stream) {
+  return launch_chol_inverse<double>(A, L, V, info, n, batch, stream);
 }
 
 }  // extern "C"

@@ -39,7 +39,7 @@ from gpim_tpu_torch.kernels.transforms import (
 from gpim_tpu_torch.ops import gram_kernels
 from gpim_tpu_torch.ops.gram import pairwise_sq_dist
 from gpim_tpu_torch.ops.linalg import safe_cholesky, solve_triangular
-from gpim_tpu_torch.ops.tri import tri_gram, tri_inverse
+from gpim_tpu_torch.ops.tri import chol_and_inverse, tri_gram, tri_inverse
 from gpim_tpu_torch.parallel.distributed import (
     all_reduce, copy_to_shards, reduce_from_shards)
 from gpim_tpu_torch.utils import profiling
@@ -186,9 +186,8 @@ class _NLLFast(torch.autograd.Function):
         # CUDA); the backward recomputes s when the kernel needs it
         Kt, A = gram_kernels.masked_system(Xs, mask, variance, noise + jitter,
                                            alpha, kernel=kernel)
-        L, info = safe_cholesky(A)
         # explicit L^-1: z now, and both backward solves become gemms
-        V = tri_inverse(L)
+        L, V, info = chol_and_inverse(A)
         z = (V @ (y * mask)[..., None])[..., 0]
         ctx.kernel = kernel
         ctx.save_for_backward(ls, variance, alpha, X, mask, V, Kt, z)
@@ -259,8 +258,7 @@ class _MLLFromGram(torch.autograd.Function):
     @staticmethod
     def forward(ctx, K, noise, ym, mask, jitter):
         A = _masked_system(K, noise, mask, jitter)
-        L, info = safe_cholesky(A)
-        V = tri_inverse(L)          # both backward solves become gemms
+        L, V, info = chol_and_inverse(A)  # backward solves become gemms
         z = V @ ym
         ctx.save_for_backward(V, z, mask)
         ctx.mark_non_differentiable(info)
@@ -575,10 +573,9 @@ def predict_exact(u, X, y, mask, bounds, jitter, Xtest_chunks, *,
         with profiling.span("predict.factor"):
             p = constrain(u, bounds)
             A = _masked_system(kfn(p, X, X), p["noise"], mask, jitter)
-            L, info = safe_cholesky(A)
             # one explicit L^-1 turns every per-chunk triangular solve
             # into a gemm
-            V = tri_inverse(L)
+            L, V, info = chol_and_inverse(A)
             alpha = V.T @ (V @ (y * mask))
         n_chunks, chunk = Xtest_chunks.shape[:2]
         means = torch.empty((n_chunks, chunk), dtype=X.dtype,

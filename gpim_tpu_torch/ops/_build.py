@@ -35,7 +35,8 @@ _I64 = ctypes.c_int64
 _INT = ctypes.c_int
 # C entry points per kernel; each exists as <name>_f32 and <name>_f64 and
 # returns the cudaError_t of its launch; K1-K3 take the task count just
-# before the stream, K4 (interp_adjoint) has no task axis.
+# before the stream, K4 (interp_adjoint) has no task axis, K5
+# (chol_inverse) takes the order and then the number of matrices.
 _SIGNATURES = {
     "gpim_sqdist": (_P, _P, _P, _I64, _I64, _INT, _INT, _P),
     "gpim_masked_system": (_P, _P, _P, _P, _P, _P, _P, _I64, _INT, _INT,
@@ -44,6 +45,7 @@ _SIGNATURES = {
                                 _I64, _INT, _INT, _P),
     "gpim_interp_adjoint": (_P, _P, _P, _P, _P, _P, _P, _INT, _P, _I64,
                             _I64, _INT, _P),
+    "gpim_chol_inverse": (_P, _P, _P, _P, _INT, _I64, _P),
 }
 
 

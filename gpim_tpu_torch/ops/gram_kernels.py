@@ -1,8 +1,9 @@
 """
-The three kernels of the exact-GP and VFE paths, and the interpolation
-adjoint of the off-lattice SKI route: CUDA for Hopper, each beside its
-plain PyTorch version. Counterpart of ``gpim_tpu/ops/pallas_gram.py``
-(K1-K3); K4 has no Pallas counterpart (see its section).
+The three kernels of the exact-GP and VFE paths, the interpolation
+adjoint of the off-lattice SKI route, and the small Cholesky factor with
+its inverse: CUDA for Hopper, each beside its plain PyTorch version.
+Counterpart of ``gpim_tpu/ops/pallas_gram.py`` (K1-K3); K4 and K5 have no
+Pallas counterpart (see their sections).
 
 Dispatch rule, the same for every wrapper: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel (``csrc/gram_kernels.cu``, built
@@ -21,7 +22,8 @@ same kernel at T = 1.
 
 Each wrapper counts its launches in a plain int attribute
 (``sqdist.launches``, ``masked_system.launches``,
-``rbf_bwd_reductions.launches``, ``interp_adjoint.launches``),
+``rbf_bwd_reductions.launches``, ``interp_adjoint.launches``,
+``chol_inverse.launches``),
 incremented where the kernel is launched and nowhere else, so a run can
 show that its main path went through the kernels; a batched call is one
 launch. Inside :func:`log_calls`, every call
@@ -48,6 +50,7 @@ __all__ = [
     "rbf_bwd_reductions", "rbf_bwd_reductions_plain",
     "InterpLayout", "interp_layout", "interp_adjoint",
     "interp_adjoint_plain",
+    "CHOL_MAX_N", "chol_inverse", "chol_inverse_plain",
 ]
 
 MAX_D = 8                    # feature count the CUDA kernels take
@@ -600,3 +603,109 @@ def interp_adjoint(layout, v):
 
 
 interp_adjoint.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: the Cholesky factor L of an SPD matrix of order n <= 128 and V = L^-1
+#
+# No Pallas counterpart: gpim_tpu factors with XLA's Cholesky and inverts
+# the factor by a triangular solve (gpim_tpu/ops/linalg.py,
+# gpim_tpu/ops/tri.py). It replaces, at BO's padded order of 128, the
+# library pair cholesky_ex (cuSOLVER's getrf_wo_pivot) and
+# solve_triangular(L, I) (cuBLAS's trsm): ~90 us a call together in float64
+# for 1.4 MFLOP, two launches of a few blocks each. One block a matrix
+# holds it in shared memory (128 KB in float64), factors it by panels of 16
+# columns and inverts the factor in the same trailing updates
+# (csrc/gram_kernels.cu, K5's section; a second block a matrix writes the
+# zeros above the diagonals); a task axis is two blocks a task,
+# one launch. Only A's lower triangle is read, as cholesky_ex reads it. Its
+# info is cholesky_ex's: 0, or the 1-based order of the first leading minor
+# whose pivot is not > 0. Every product is in the input's precision. Not
+# differentiable: the callers (ops/tri.py chol_and_inverse) take it only
+# where no gradient is asked of A.
+# ---------------------------------------------------------------------------
+
+CHOL_MAX_N = 128    # largest order: one float64 matrix in one block
+_CHOL_NB = 16       # K5's panel width
+
+
+def chol_inverse_plain(A):
+    """(L, V, info) of the SPD matrix ``A`` (..., n, n), or each matrix of
+    a batch, by K5's algorithm in its order: A padded to a multiple of 16
+    with the identity; by panels of 16 columns, each factored a column at
+    a time (pivot ``d``, scale ``rsqrt(d)``, the diagonal ``d rsqrt(d)``);
+    the panel's row block of V by forward substitution with the panel's
+    diagonal block, from what the row block held and the identity; then
+    one trailing update of every row below, over the columns up to its
+    diagonal. Sums run in PyTorch's order, not the kernel's."""
+    n = A.shape[-1]
+    nb = _CHOL_NB
+    npad = -(-n // nb) * nb
+    Ab = A.reshape(-1, n, n)
+    T = Ab.shape[0]
+    eye = torch.eye(npad, dtype=A.dtype, device=A.device)
+    M = eye.expand(T, npad, npad).clone()
+    M[:, :n, :n] = Ab.tril()
+    L = torch.zeros_like(M)
+    info = torch.zeros(T, dtype=torch.int32, device=A.device)
+    for k0 in range(0, npad, nb):
+        t0 = k0 + nb
+        P = M[:, k0:, k0:t0].clone()            # the panel, rows k0 ..
+        rinv = []
+        for j in range(nb):
+            d = P[:, j, j].clone()
+            info[~(d > 0) & (info == 0)] = k0 + j + 1
+            rinv.append(torch.rsqrt(d))
+            P[:, j + 1:, j] *= rinv[j][:, None]
+            P[:, j, j] = d * rinv[j]
+            P[:, :, j + 1:] -= P[:, :, j, None] * P[:, None, j + 1:nb, j]
+        R = M[:, k0:t0, :t0].clone()            # row block p of V
+        R[:, :, k0:] = eye[:nb, :nb]
+        for j in range(nb):
+            R[:, j] *= rinv[j][:, None]
+            R[:, j + 1:] -= P[:, j + 1:nb, j, None] * R[:, j, None]
+        L[:, k0:, k0:t0] = P
+        M[:, k0:t0, :t0] = R
+        if t0 < npad:
+            below = P[:, nb:]
+            Q = torch.cat([R, below.mT], dim=-1)
+            M[:, t0:, k0:t0] = 0
+            M[:, t0:] -= below @ Q
+    L = L.tril()[:, :n, :n].reshape(A.shape)
+    V = M.tril()[:, :n, :n].reshape(A.shape)
+    return L, V, info.reshape(A.shape[:-2])
+
+
+def chol_inverse(A):
+    """K5 wrapper: ``(L, V, info)`` for the SPD matrix ``A`` (n, n), or a
+    batch (..., n, n) in one launch, n <= ``CHOL_MAX_N``: the lower
+    Cholesky factor L, V = L^-1 (both with zeros above the diagonal) and
+    cholesky_ex's status, an int32 device tensor of the batch's shape. On
+    CUDA, L and V agree with ``cholesky_ex`` and ``solve_triangular(L, I)``
+    to rounding: the factor's pivots differ by an ulp (``rsqrt``) and the
+    sums run in another order."""
+    if A.dim() < 2 or A.shape[-1] != A.shape[-2]:
+        raise ValueError("chol_inverse: expected square matrices, got shape "
+                         "%s" % (tuple(A.shape),))
+    if A.requires_grad and torch.is_grad_enabled():
+        raise ValueError("chol_inverse: A requires a gradient, which K5 "
+                         "does not give; detach it")
+    if not A.is_cuda:
+        return chol_inverse_plain(A)
+    n = A.shape[-1]
+    dtype = _check_cuda("chol_inverse", (A,))
+    if not 1 <= n <= CHOL_MAX_N:
+        raise ValueError("chol_inverse: order 1 to %d, got %d"
+                         % (CHOL_MAX_N, n))
+    L = torch.empty_like(A)
+    V = torch.empty_like(A)
+    info = torch.empty(A.shape[:-2], dtype=torch.int32, device=A.device)
+    batch = A.numel() // (n * n)
+    if batch:
+        _launch("gpim_chol_inverse", dtype, _ptr(A), _ptr(L), _ptr(V),
+                _ptr(info), n, batch, _stream(A))
+        chol_inverse.launches += 1
+    return L, V, info
+
+
+chol_inverse.launches = 0

@@ -38,11 +38,27 @@ The blocked route is taken only where no gradient is asked of its input
 (it writes into preallocated outputs); under autograd both functions stay
 the library calls. Each function counts its blocked runs in a plain int
 attribute (``tri_inverse.blocked``, ``tri_gram.blocked``).
+
+``chol_and_inverse`` gives the factor and ``V`` together, the pair the
+exact GP's loss and prediction need. At n <= 128 (BO's padded order) on
+the card, with no gradient asked, that is K5 (``gram_kernels.chol_inverse``,
+counted by ``chol_inverse.launches``): one block factors the matrix and
+inverts the factor in shared memory, one launch where ``cholesky_ex`` and
+``solve_triangular`` took ~90 us in float64. Above 128 a float64 matrix no
+longer fits one block, and the library Cholesky and ``tri_inverse`` stay;
+so do CPU tensors, bit for bit.
 """
 
 import torch
 
-__all__ = ["tri_inverse", "tri_gram"]
+from gpim_tpu_torch.ops import gram_kernels
+from gpim_tpu_torch.ops.linalg import safe_cholesky
+
+__all__ = ["chol_and_inverse", "tri_inverse", "tri_gram"]
+
+# devices on which chol_and_inverse takes K5 (tests add the CPU, where the
+# kernel's wrapper runs its plain version)
+_KERNEL_DEVICES = ("cuda",)
 
 # The crossover: a matrix of this order or more takes the blocked route, and
 # so does a batch of matrices with as many elements in all (module docstring).
@@ -215,3 +231,19 @@ def tri_gram(V):
 
 
 tri_gram.blocked = 0
+
+
+def chol_and_inverse(A):
+    """``(L, V, info)``: the lower Cholesky factor of the SPD matrix (or
+    batch) ``A``, ``V = L^-1`` and the status of :func:`safe_cholesky`. K5
+    for a float32 or float64 matrix of order 1 to 128 on the card that asks
+    no gradient; otherwise :func:`safe_cholesky`, then :func:`tri_inverse`
+    (module docstring)."""
+    n = A.shape[-1]
+    if (A.device.type in _KERNEL_DEVICES
+            and A.dtype in (torch.float32, torch.float64)
+            and 1 <= n <= gram_kernels.CHOL_MAX_N
+            and not (torch.is_grad_enabled() and A.requires_grad)):
+        return gram_kernels.chol_inverse(A.contiguous())
+    L, info = safe_cholesky(A)
+    return L, tri_inverse(L), info

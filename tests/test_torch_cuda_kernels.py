@@ -18,8 +18,10 @@ its plain version on ragged grids with empty cells, bit-equal run to run
 and to the plain version on the CPU (also where one cell's entries span
 chunks), and launched by an off-lattice run(); the f32 predictive sd in the
 cancellation regime; utils.profiling.trace holding every kernel a run
-launched. One test, of the bytes the kernels' bounds count,
-runs on the CPU.
+launched; K5, the Cholesky factor and its inverse at n <= 128, against the
+library pair with its info, one device operation a call, its checks, and
+its launches in a short BO campaign and none in a spiral-order step. One
+test, of the bytes the kernels' bounds count, runs on the CPU.
 
 The tests marked ``cuda`` need a CUDA device and skip without one. The file
 imports no JAX, so it runs on a machine without it (there the repo's
@@ -1125,3 +1127,140 @@ def test_a_trace_holds_every_kernel_the_run_launched(dev, tmp_path):
         events = json.loads(path.read_text())["traceEvents"]
         kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
         assert [sum(k in n for n in kernels) for k, _ in names] == launched
+
+
+# ---------------------------------------------------------------------------
+# K5: chol_inverse
+# ---------------------------------------------------------------------------
+
+def _spd(shape, dtype, dev, seed=0):
+    """``I + W W^T / n`` (eigenvalues in [1, 5]), ``W`` seeded."""
+    n = shape[-1]
+    g = torch.Generator().manual_seed(seed)
+    W = torch.randn(shape, generator=g, dtype=torch.float64)
+    A = W @ W.mT / n + torch.eye(n, dtype=torch.float64)
+    return A.to(dtype).to(dev).contiguous()
+
+
+def _rel_gap(x, ref):
+    return ((x.double() - ref.double()).abs().max()
+            / ref.double().abs().max()).item()
+
+
+# K5 against cholesky_ex and solve_triangular(L, I): float64 to 1e-13 of
+# the largest entry, float32 to 1e-5 (~1e-16 and ~1e-7 measured)
+K5_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
+
+
+@cuda
+@pytest.mark.parametrize("tasks", [None, 8], ids=["single", "tasks8"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 2, 35, 127, 128])
+def test_chol_inverse_against_library(dev, n, dtype, tasks):
+    A = _spd((n, n) if tasks is None else (tasks, n, n), dtype, dev)
+    L, V, info = gk.chol_inverse(A)
+    L_ref, info_ref = torch.linalg.cholesky_ex(A)
+    eye = torch.eye(n, dtype=dtype, device=dev)
+    V_ref = torch.linalg.solve_triangular(L_ref, eye, upper=False)
+    assert info.dtype == torch.int32 and info.shape == info_ref.shape
+    assert not info.any()
+    assert _rel_gap(L, L_ref) <= K5_TOL[dtype]
+    assert _rel_gap(V, V_ref) <= K5_TOL[dtype]
+    assert (L.triu(1) == 0).all() and (V.triu(1) == 0).all()
+
+
+@cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k", [1, 36, 128])
+def test_chol_inverse_info_on_a_minor_not_positive_definite(dev, k, dtype):
+    A = _spd((3, 128, 128), dtype, dev)
+    A[1, k - 1, k - 1] = -5.0
+    info = gk.chol_inverse(A)[2]
+    assert info.tolist() == torch.linalg.cholesky_ex(A).info.tolist() \
+        == [0, k, 0]
+
+
+@cuda
+def test_chol_inverse_is_one_device_operation_a_call(dev):
+    from torch.profiler import ProfilerActivity, profile
+    A = _spd((8, 128, 128), torch.float64, dev)
+    gk.chol_inverse(A)
+    torch.cuda.synchronize()
+    before = gk.chol_inverse.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            gk.chol_inverse(A)
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events()
+           if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    assert len(ops) == 4 and all("chol_inverse_kernel" in o for o in ops)
+    assert gk.chol_inverse.launches == before + 4
+
+
+@cuda
+def test_chol_inverse_checks_its_operands(dev):
+    A = _spd((128, 128), torch.float64, dev)
+    with pytest.raises(ValueError):
+        gk.chol_inverse(_spd((129, 129), torch.float64, dev))
+    with pytest.raises(ValueError):
+        gk.chol_inverse(A[:, :64])
+    with pytest.raises(ValueError):
+        gk.chol_inverse(A.mT)
+    with pytest.raises(TypeError):
+        gk.chol_inverse(A.half())
+    with pytest.raises(ValueError):
+        gk.chol_inverse(A.clone().requires_grad_(True))
+
+
+@cuda
+def test_k5_launches_in_a_bo_campaign_and_not_at_spiral_order(dev,
+                                                               tmp_path):
+    """A 3-step bo25-shaped campaign (25 x 25 grid, 5 seed pixels, EI,
+    float64) launches K5 once an Adam step and once a prediction, and no
+    cholesky_ex; a spiral-order exact GP step (n = 6144) launches none."""
+    import gpim_tpu_torch
+    from gpim_tpu_torch import utils
+    from torch.profiler import ProfilerActivity, profile
+
+    def target(idx):
+        return float(np.exp(-((idx[0] - 5.) ** 2 + (idx[1] - 10.) ** 2)
+                            / 20.0))
+
+    rng = np.random.RandomState(0)
+    grid = np.full((25, 25), np.nan)
+    for i, j in rng.randint(0, 25, (5, 2)):
+        grid[i, j] = target((i, j))
+    bo = gpim_tpu_torch.boptimizer(
+        utils.get_sparse_grid(grid), grid, utils.get_full_grid(grid),
+        target, acquisition_function="ei", exploration_steps=3,
+        gp_iterations=8, refit_iterations=2, verbose=0,
+        filename=str(tmp_path / "bo"))
+    adam = 8 + 3 * 2
+    before = gk.chol_inverse.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bo.run()
+        torch.cuda.synchronize()
+    assert gk.chol_inverse.launches - before == adam + 3
+    names = [e.name for e in prof.events()
+             if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    assert sum("chol_inverse_kernel" in nm for nm in names) == adam + 3
+    assert not any("getrf" in nm or "potrf" in nm or "trsm" in nm
+                   for nm in names)
+    # the spiral's order keeps the library pair
+    Xs = torch.as_tensor(np.random.RandomState(1).rand(6144, 2) * 128.0,
+                         device=dev)
+    mask = torch.ones(6144, dtype=torch.float64, device=dev)
+    mask[6036:] = 0
+    y = torch.sin(Xs[:, 0] / 9.0) * mask
+    ls = torch.tensor([3.0, 3.0], dtype=torch.float64, device=dev,
+                      requires_grad=True)
+    v = torch.tensor(1.0, dtype=torch.float64, device=dev,
+                     requires_grad=True)
+    noise = torch.tensor(0.01, dtype=torch.float64, device=dev,
+                         requires_grad=True)
+    before = gk.chol_inverse.launches
+    nll, info = engine._NLLFast.apply("RBF", ls, v, noise, None, Xs, y, mask,
+                                      1e-5)
+    nll.backward()
+    torch.cuda.synchronize()
+    assert info.item() == 0 and gk.chol_inverse.launches == before

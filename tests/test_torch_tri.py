@@ -4,7 +4,13 @@ The explicit inverse ``A^-1 = V^T V``, ``V = L^-1`` (``ops/tri.py``):
 calls they replace from the crossover on, the library calls' own bits
 below it, the engagement counters, the exact GP's loss and gradients
 through both routes, and the autograd rule (under autograd the library
-route, whatever the size).
+route, whatever the size). And ``chol_and_inverse``: K5's plain version
+(``gram_kernels.chol_inverse_plain``, the kernel's algorithm) against
+``cholesky_ex`` and ``solve_triangular`` with its ``info``, the route's
+choice (the library pair for CPU tensors, above order 128 and under
+autograd), and the exact GP's loss, gradients and prediction at BO's order
+through K5's route (its plain version, put in by monkeypatch) against the
+library pair.
 
 On the CPU the crossover and leaf size are lowered so that the blocked
 route runs at small orders. The test marked ``cuda`` runs the module's own
@@ -19,7 +25,8 @@ import pytest
 import torch
 
 from gpim_tpu_torch.gpreg import engine
-from gpim_tpu_torch.ops import tri
+from gpim_tpu_torch.ops import gram_kernels as gk
+from gpim_tpu_torch.ops import linalg, tri
 
 
 @pytest.fixture
@@ -216,6 +223,169 @@ def test_mll_from_gram_gradients_through_both_routes(monkeypatch):
     assert abs(out[0] - ref[0]) <= 1e-10 * abs(ref[0])
     for a, b in zip(out[1:], ref[1:]):
         assert _gap(a, b) <= 1e-10
+
+
+def _spd(shape, dtype=torch.float64, seed=0):
+    """``I + W W^T / n`` (eigenvalues in [1, 5]), ``W`` seeded."""
+    n = shape[-1]
+    g = torch.Generator().manual_seed(seed)
+    W = torch.randn(shape, generator=g, dtype=torch.float64)
+    return (W @ W.mT / n + torch.eye(n, dtype=torch.float64)).to(dtype)
+
+
+def _library_pair(A):
+    L, info = torch.linalg.cholesky_ex(A)
+    return L, _library(L)[0], info
+
+
+# K5 against the library pair: float64 to 1e-13 of the largest entry,
+# float32 to 1e-5 (both read ~1e-16 and ~1e-7 at these orders)
+CHOL_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
+
+
+@pytest.mark.parametrize("tasks", [None, 8], ids=["single", "tasks8"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("n", [1, 2, 35, 127, 128])
+def test_chol_inverse_plain_matches_library(n, dtype, tasks):
+    """K5's algorithm (its plain version) gives the library pair's factor
+    and inverse, zero above the diagonal, with info 0 a matrix."""
+    shape = (n, n) if tasks is None else (tasks, n, n)
+    A = _spd(shape, dtype)
+    L, V, info = gk.chol_inverse_plain(A)
+    L_ref, V_ref, info_ref = _library_pair(A)
+    assert L.shape == V.shape == A.shape and L.dtype == V.dtype == dtype
+    assert info.shape == info_ref.shape and info.dtype == torch.int32
+    assert not info.any()
+    assert _gap(L, L_ref) <= CHOL_TOL[dtype]
+    assert _gap(V, V_ref) <= CHOL_TOL[dtype]
+    assert torch.equal(L.triu(1), torch.zeros_like(L))
+    assert torch.equal(V.triu(1), torch.zeros_like(V))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("k", [1, 36, 128])
+def test_chol_inverse_plain_info(k, dtype):
+    """On a batch whose second matrix has a leading minor of order k that
+    is not positive definite, info is cholesky_ex's: 0, then k."""
+    A = _spd((3, 128, 128), dtype)
+    A[1, k - 1, k - 1] = -5.0
+    info = gk.chol_inverse_plain(A)[2]
+    assert info.tolist() == torch.linalg.cholesky_ex(A).info.tolist() \
+        == [0, k, 0]
+
+
+_K5 = gk.chol_inverse          # the wrapper, whose launches count
+
+
+@pytest.fixture
+def k5_spy(monkeypatch):
+    """Counts the route's calls of K5's wrapper."""
+    calls = []
+
+    def spy(A):
+        calls.append(tuple(A.shape))
+        return _K5(A)
+
+    monkeypatch.setattr(gk, "chol_inverse", spy)
+    return calls
+
+
+def test_chol_and_inverse_keeps_the_library_pair_on_the_cpu(k5_spy):
+    """A CPU tensor takes safe_cholesky then tri_inverse, bit for bit, and
+    launches nothing."""
+    launches = _K5.launches
+    for shape in ((128, 128), (8, 35, 35), (129, 129)):
+        A = _spd(shape)
+        L, V, info = tri.chol_and_inverse(A)
+        L_ref, info_ref = linalg.safe_cholesky(A)
+        assert torch.equal(L, L_ref) and torch.equal(info, info_ref)
+        assert torch.equal(V, tri.tri_inverse(L_ref))
+    assert k5_spy == [] and _K5.launches == launches
+
+
+def test_chol_and_inverse_route_by_order_and_autograd(monkeypatch, k5_spy):
+    """On a device that takes K5 (the CPU here, by monkeypatch, where the
+    wrapper runs its plain version), orders 1 to 128 take K5, and order
+    129, the spiral's 6144 (on the meta device: the choice alone) and an
+    A that asks for a gradient take the library pair."""
+    monkeypatch.setattr(tri, "_KERNEL_DEVICES", ("cpu", "meta", "cuda"))
+    taken = []
+    monkeypatch.setattr(tri, "safe_cholesky", lambda A: (
+        taken.append(tuple(A.shape)) or linalg.safe_cholesky(A)))
+    monkeypatch.setattr(tri, "tri_inverse", lambda L: L)
+    for shape in ((1, 1), (128, 128), (8, 128, 128)):
+        tri.chol_and_inverse(_spd(shape))
+    assert k5_spy == [(1, 1), (128, 128), (8, 128, 128)] and taken == []
+    monkeypatch.setattr(tri, "safe_cholesky", lambda A: (
+        taken.append(tuple(A.shape)) or (A, None)))
+    tri.chol_and_inverse(_spd((129, 129)))
+    tri.chol_and_inverse(torch.empty((6144, 6144), device="meta",
+                                     dtype=torch.float64))
+    tri.chol_and_inverse(_spd((128, 128)).requires_grad_(True))
+    assert taken == [(129, 129), (6144, 6144), (128, 128)]
+    assert len(k5_spy) == 3
+
+
+def test_nllfast_through_k5_route(monkeypatch, k5_spy):
+    """``_NLLFast``'s loss and gradients at BO's order (35 points padded to
+    128) through K5's route, its plain version on the CPU, against the
+    library pair; one K5 call a forward."""
+    problem = _exact_problem(35, 128)
+    loss_lib, grads_lib = _nll_step(*problem)
+    assert k5_spy == []
+    monkeypatch.setattr(tri, "_KERNEL_DEVICES", ("cpu", "cuda"))
+    loss_k5, grads_k5 = _nll_step(*problem)
+    assert k5_spy == [(128, 128)]
+    assert abs(loss_k5 - loss_lib) <= 1e-12 * abs(loss_lib)
+    for k in grads_lib:
+        assert torch.allclose(grads_k5[k], grads_lib[k], rtol=1e-10,
+                              atol=0), k
+
+
+def test_mll_from_gram_through_k5_route(monkeypatch, k5_spy):
+    """``mll_from_gram``'s loss and gradients at order 128 through K5's
+    route against the library pair."""
+    _, X, y, mask = _exact_problem(35, 128)
+    K = torch.exp(-0.5 * torch.cdist(X, X) ** 2 / 9.0).requires_grad_(True)
+    noise = torch.tensor(0.02, dtype=torch.float64, requires_grad=True)
+
+    def step():
+        K.grad = noise.grad = None
+        nll, _ = engine.mll_from_gram(K, noise, y * mask, mask, 1e-5)
+        nll.backward()
+        return nll.item(), K.grad.clone(), noise.grad.clone()
+
+    ref = step()
+    monkeypatch.setattr(tri, "_KERNEL_DEVICES", ("cpu", "cuda"))
+    out = step()
+    assert k5_spy == [(128, 128)]
+    assert abs(out[0] - ref[0]) <= 1e-12 * abs(ref[0])
+    for a, b in zip(out[1:], ref[1:]):
+        assert _gap(a, b) <= 1e-10
+
+
+def test_predict_exact_through_k5_route(monkeypatch, k5_spy):
+    """A BO-size exact GP (35 observed pixels of a 10 x 10 image, padded
+    to 128) predicts the same mean and sd through K5's route (its plain
+    version on the CPU) as through the library pair."""
+    import gpim_tpu_torch
+    from gpim_tpu_torch import utils
+    rng = np.random.RandomState(5)
+    R = np.sin(np.arange(100.0).reshape(10, 10) / 7.0)
+    R.ravel()[rng.permutation(100)[35:]] = np.nan
+    model = gpim_tpu_torch.reconstructor(
+        utils.get_sparse_grid(R), R, utils.get_full_grid(R), kernel="RBF",
+        iterations=3, use_gpu=False, verbose=0)
+    model.train()
+    mean_lib, sd_lib = model.predict()
+    assert k5_spy == []
+    monkeypatch.setattr(tri, "_KERNEL_DEVICES", ("cpu", "cuda"))
+    mean_k5, sd_k5 = model.predict()
+    assert k5_spy == [(128, 128)]
+    np.testing.assert_allclose(mean_k5, mean_lib, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(sd_k5, sd_lib, rtol=0, atol=1e-10)
 
 
 @pytest.mark.cuda
