@@ -48,7 +48,14 @@ its final line):
              predict chunk), and at one task-sharded rank's share of them
              (T = 32), against their plain versions in float32 and
              float64, each timed (a warm loop of launches) beside its
-             bound, its plain version and (K1) batched torch.cdist.
+             bound, its plain version and (K1) batched torch.cdist;
+             K5 (the Cholesky factor and its inverse in one block) against
+             its plain version at bo25's padded 128 x 128 system, timed in
+             float32 beside the library pair, and at every other shape a
+             path here gives it: Kmm and B of the bo25 VFE surrogate
+             (5 x 5) and of the small 24x24 sparse problem (43 x 43), the
+             small 12x12x3 multi-output problem's task batches
+             (3 x 128 x 128 padded, 3 x 104 x 104 correlated).
 4. flagship - reconstructor(X, R, X_full, kernel="RBF", iterations=250,
              precision="single").run() on the 128x128 spiral
              (gpim_tpu_torch/examples/_data.spiral_scan, the same arrays as
@@ -976,6 +983,58 @@ def _bo_kernel_inputs(dtype):
                    ("VFE Ks", Xt, Xu, (ids(X5), ar(m)))]}
 
 
+def _k5_inputs(bo, dtype, v, noise, jitter):
+    """K5's operands on the smoke's paths other than BO's exact surrogate,
+    built as their code builds them (RBF at the kernel phase's
+    hyperparameters): Kmm and B = I + A A^T, A = Lm^-1 Kmn / sqrt(noise)
+    (``predict_vfe``) of the bo25 VFE surrogate (its m = 5 inducing
+    points) and of the small 24x24 sparse problem (the strided m = 43 of
+    its observations, at lengthscale 3 px); the small 12x12x3 multi-output
+    problem's task-batched systems, 3 channels at lengthscales of 2, 3 and
+    4 px: masked on its rows padded to 128 (``predict_independent``) and
+    lam_t Kx + noise I on its observed rows (``predict_correlated``).
+    Returns [(label, A)]."""
+    import torch
+    from gpim_tpu_torch import utils
+    from gpim_tpu_torch.gpreg import engine
+    from gpim_tpu_torch.ops import gram_kernels as gk
+    dev = bo["Xu"].device
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+
+    def rbf(A, B):
+        return v * torch.exp(-0.5 * ((A[:, None] - B[None]) ** 2).sum(-1))
+
+    def vfe(Xu, Xn, mask):
+        eye = torch.eye(len(Xu), dtype=dtype, device=dev)
+        Kmm = rbf(Xu, Xu) + jitter * eye
+        A = gk.chol_inverse_plain(Kmm)[1] @ (rbf(Xu, Xn) * mask) \
+            / noise ** 0.5
+        return Kmm, eye + A @ A.T
+    Xn = next(B for label, _, B, _ in bo["sqdist"] if label == "VFE Kmn")
+    bo_vfe = vfe(bo["Xu"], Xn, torch.arange(len(Xn), device=dev)
+                 < len(bo["Xu"]))
+    Rs = small_data()
+    X_np = utils.prepare_training_data(utils.get_sparse_grid(Rs), Rs)[0]
+    small_vfe = vfe(t(X_np[::len(X_np) // 40] / 3.0), t(X_np / 3.0), 1.0)
+
+    X = small_vector_data()[0]
+    obs = ~np.isnan(X[0])
+    pts = np.stack([X[0][obs], X[1][obs]], -1)
+    ls = np.array([2.0, 3.0, 4.0])
+    Xp, n_obs = engine.pad_rows(pts, 128)
+    mask = t((np.arange(len(Xp)) < n_obs).astype(float))
+    Xs = t(Xp[None] / ls[:, None, None]).contiguous()
+    ind = gk.masked_system(Xs, mask, t(np.full(3, v)),
+                           t(np.full(3, noise + jitter)), kernel="RBF")[1]
+    Kx = rbf(t(pts / 3.0), t(pts / 3.0))
+    corr = t([0.05, 0.4, 1.5])[:, None, None] * Kx + (
+        noise + jitter) * torch.eye(n_obs, dtype=dtype, device=dev)
+    return [("bo25 VFE Kmm", bo_vfe[0]), ("bo25 VFE B", bo_vfe[1]),
+            ("small sparse Kmm", small_vfe[0]),
+            ("small sparse B", small_vfe[1]),
+            ("small multi independent", ind),
+            ("small multi correlated", corr)]
+
 def _quickstart_kernel_inputs(dtype):
     """The operands quickstart.ipynb gives the kernels, from its own image
     at lengthscales of a trained model (5.3 and 6.7 px): the training rows
@@ -1211,6 +1270,7 @@ def _chol_inverse_case(A, dname, timed):
         return L, torch.linalg.solve_triangular(L, eye, upper=False)
 
     L, V, info = gk.chol_inverse(A)
+    info = int(info.abs().max())
     L_ref, V_ref, _ = gk.chol_inverse_plain(A.double())
     gaps = [_norm_err(x, ref, ref.abs().max()) for x, ref in
             ((L, L_ref), (V, V_ref))]
@@ -1218,15 +1278,15 @@ def _chol_inverse_case(A, dname, timed):
            zip(library(), (L_ref, V_ref))]
     err, nerr = max(g[0] for g in gaps), max(g[1] for g in gaps)
     allowed = max(TOL["chol_inverse"][dname], 4 * max(lib))
-    log("[kernels] chol_inverse        %-7s n = %d, max_abs_err %.3e  "
+    log("[kernels] chol_inverse        %-7s %s, max_abs_err %.3e  "
         "normalized %.3e (library pair %.3e)  allowed %.1e  %s"
-        % (dname, n, err, nerr, max(lib), allowed,
-           "ok" if nerr <= allowed and not info.item() else "FAIL"))
-    if nerr > allowed or info.item():
+        % (dname, "x".join(map(str, A.shape)), err, nerr, max(lib), allowed,
+           "ok" if nerr <= allowed and not info else "FAIL"))
+    if nerr > allowed or info:
         raise AssertionError("chol_inverse %s disagrees with its plain "
-                             "version: %.3e > %.1e (info %d)"
-                             % (dname, nerr, allowed, info.item()))
-    rec = {"err": err, "shape": [n, n]}
+                             "version at %s: %.3e > %.1e (info %d)"
+                             % (dname, tuple(A.shape), nerr, allowed, info))
+    rec = {"err": err, "shape": list(A.shape)}
     if timed:
         rec["ms"] = _time_graph_ms(lambda: gk.chol_inverse(A))
         rec["loop_ms"] = _time_ms(lambda: gk.chol_inverse(A))
@@ -1355,10 +1415,14 @@ def phase_kernels(R, X, X_full, vfe, eels64, ckpfm):
                                njt, dname)
         rec["rbf_bwd_reductions"]["bo_shapes"] = {
             "bo25": {"err": err, "shape": shape}}
-        # K5 on bo25's padded training system
+        # K5 on bo25's padded training system, timed, and at every other
+        # shape a path of this script gives it
         A = gk.masked_system(bo["Xs"], bo["mask"], vt, njt,
                              kernel="RBF")[1]
         rec["chol_inverse"] = _chol_inverse_case(A, dname, timed)
+        rec["chol_inverse"]["k5_shapes"] = {
+            label: _chol_inverse_case(A, dname, False)
+            for label, A in _k5_inputs(bo, dtype, v, noise, jitter)}
         del bo, A
         # every kernel at the shapes quickstart.ipynb gives it
         qs = _quickstart_kernel_inputs(dtype)
@@ -4036,7 +4100,8 @@ def kernel_records(kreport, paths):
                             "library_ms": v["library_ms"]}
                     for label, v in r[key].items()}
     # K5 (no Pallas counterpart; the library pair at n <= 128), timed on
-    # bo25's padded system; its launches are not among the paths' counts
+    # bo25's padded system and checked at the other paths' shapes; its
+    # launches are not among the paths' counts
     r = kreport["chol_inverse"]
     out.append({
         "name": "chol_inverse", "route": "cuda", "source": SOURCE,
@@ -4048,7 +4113,9 @@ def kernel_records(kreport, paths):
         "bound_share": r["bound"][0] / r["ms"],
         "library_ms": r["library_ms"],
         "library": "cholesky_ex then solve_triangular(L, I), the pair "
-                   "this kernel replaced"})
+                   "this kernel replaced",
+        "k5_shapes": {label: {"shape": v["shape"], "max_abs_err": v["err"]}
+                      for label, v in r["k5_shapes"].items()}})
     return out
 
 

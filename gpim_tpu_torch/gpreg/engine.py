@@ -15,10 +15,11 @@ the exact marginal likelihood and the sparse Titsias VFE bound.
   (per-task hyperparameters and targets, a shared X and mask): T problems
   whose kernels run as one launch each, the batch that ``gpim_tpu``'s
   ``vmap`` over output channels gives (:mod:`gpim_tpu_torch.gpreg.multi`).
-- Training is a Python loop of ``torch.optim.Adam`` steps that never waits
-  for the device (:func:`adam_steps`, shared with the multi-output GP):
-  losses, raw parameters and Cholesky status are recorded into preallocated
-  device tensors and read once after the loop.
+- Every model trains through one Python loop of ``torch.optim.Adam``
+  steps that never waits for the device (:func:`_adam`, run by
+  :func:`adam_steps`, and by :func:`adam_segments` for the SKI engines):
+  losses, raw parameters and Cholesky status (or CG iterations) are
+  recorded into preallocated device tensors and read once after the loop.
 - :func:`mll_from_gram` is the masked NLL of a Gram matrix built
   elsewhere (the spectral mixture's), with the closed-form dNLL/dK.
 - The sparse path is the Titsias variational free energy (VFE) bound with
@@ -39,7 +40,7 @@ from gpim_tpu_torch.kernels.transforms import (
 from gpim_tpu_torch.ops import gram_kernels
 from gpim_tpu_torch.ops.gram import pairwise_sq_dist
 from gpim_tpu_torch.ops.linalg import safe_cholesky, solve_triangular
-from gpim_tpu_torch.ops.tri import chol_and_inverse, tri_gram, tri_inverse
+from gpim_tpu_torch.ops.tri import chol_and_inverse, tri_gram
 from gpim_tpu_torch.parallel.distributed import (
     all_reduce, copy_to_shards, reduce_from_shards)
 from gpim_tpu_torch.utils import profiling
@@ -316,9 +317,8 @@ def _vfe_loss_info(u, X, y, mask, bounds, jitter, kernel, group=None):
     eye = torch.eye(m, dtype=X.dtype, device=X.device)
     # Xu enters Kmm twice: autograd adds K1's gradient in both arguments
     Kmm = kfn(p, Xu, Xu) + jitter * eye
-    Lm, info_m = safe_cholesky(Kmm)
     # explicit Lm^-1 turns the wide (m, n) triangular solve into a gemm
-    Vm = tri_inverse(Lm)
+    Lm, Vm, info_m = chol_and_inverse(Kmm)
     keys = sorted(p)
     rows = _enter_rows([p[k] for k in keys] + [Vm], group)
     pr = dict(zip(keys, rows[:-1]))
@@ -414,20 +414,18 @@ def _check_cholesky(infos, what, factors=("",)):
 _VFE_FACTORS = ("Kmm", "B")
 
 
-def adam_steps(loss_info, u0, lr, iterations, factors=("",)):
-    """Run ``iterations`` Adam steps on ``loss_info(u) -> (loss, info)``;
-    returns (final u, raw trajectory {key: (iterations, ...)}, losses).
-
-    The trajectory holds the post-update unconstrained parameters of every
-    iteration, the losses the pre-update loss. Adam is
-    ``torch.optim.Adam``, whose update m_hat / (sqrt(v_hat) + 1e-8) is
-    optax.adam's. Nothing in the loop reads a device value: ``info``, the
-    Cholesky status of each of ``factors``, is recorded every step and
-    checked once at the end, and a failure raises
-    ``torch.linalg.LinAlgError``. A loss with no Cholesky factor passes
-    ``factors=()`` and returns ``info`` None. The optimizer's construction
-    is an ``adam.init`` span and each iteration an ``adam.step`` span
-    (:mod:`gpim_tpu_torch.utils.profiling`).
+def _adam(u0, lr, iterations):
+    """The Adam loop that every model trains through (:func:`adam_steps`,
+    :func:`adam_segments`). Returns (u, step, raw trajectory {key:
+    (iterations, ...)}, losses): the trained copy of ``u0`` and
+    ``step(i, aux, loss_fn, *args)``, the ``i``-th step on ``loss_fn(u,
+    *args) -> (loss, a, *rest)``, which returns ``rest``. A step records,
+    into device buffers and without reading a device value, the pre-update
+    loss, ``a`` into ``aux[i]`` (unless ``aux`` is None) and the
+    post-update ``u``.
+    Adam is ``torch.optim.Adam``, whose update m_hat / (sqrt(v_hat) +
+    1e-8) is optax.adam's; its construction is an ``adam.init`` span and
+    each step an ``adam.step`` span (:mod:`gpim_tpu_torch.utils.profiling`).
     """
     u = {k: v.detach().clone().requires_grad_(True) for k, v in u0.items()}
     with profiling.span("adam.init"):
@@ -436,22 +434,41 @@ def adam_steps(loss_info, u0, lr, iterations, factors=("",)):
     first = next(iter(u.values()))
     dev = first.device
     losses = torch.empty((iterations,), dtype=first.dtype, device=dev)
-    infos = torch.zeros((iterations, len(factors)), dtype=torch.int32,
-                        device=dev)
     u_traj = {k: torch.empty((iterations,) + tuple(v.shape), dtype=v.dtype,
                              device=dev) for k, v in u.items()}
-    for i in range(iterations):
+
+    def step(i, aux, loss_fn, *args):
         with profiling.span("adam.step"):
             opt.zero_grad(set_to_none=True)
-            loss, info = loss_info(u)
+            loss, a, *rest = loss_fn(u, *args)
             loss.backward()
             opt.step()
             with torch.no_grad():
                 losses[i] = loss
-                if factors:
-                    infos[i] = info
+                if aux is not None:
+                    aux[i] = a
                 for k, v in u.items():
                     u_traj[k][i] = v
+        return rest
+
+    return u, step, u_traj, losses
+
+
+def adam_steps(loss_info, u0, lr, iterations, factors=("",)):
+    """Run ``iterations`` Adam steps (:func:`_adam`) on ``loss_info(u) ->
+    (loss, info)``; returns (final u, raw trajectory {key: (iterations,
+    ...)}, losses).
+
+    ``info``, the Cholesky status of each of ``factors``, is recorded every
+    step and checked once at the end, and a failure raises
+    ``torch.linalg.LinAlgError``. A loss with no Cholesky factor passes
+    ``factors=()`` and returns ``info`` None.
+    """
+    u, step, u_traj, losses = _adam(u0, lr, iterations)
+    infos = torch.zeros((iterations, len(factors)), dtype=torch.int32,
+                        device=losses.device)
+    for i in range(iterations):
+        step(i, infos if factors else None, loss_info)
     if factors:
         _check_cholesky(infos, "train", factors)
     return {k: v.detach() for k, v in u.items()}, u_traj, losses
@@ -461,36 +478,27 @@ def adam_segments(u0, lr, iterations, build_precond, loss_iters,
                   carry0=None):
     """Adam in training segments between preconditioner rebuilds, the host
     loop of the SKI engines (gpim_tpu/gpreg/mgrid_model.py:596-642,
-    gpim_tpu/gpreg/ski_model.py:209-245). ``build_precond(u)`` returns the
-    preconditioner a segment uses and ``loss_iters(u, precond)`` the loss
-    and its realized CG iterations. With ``carry0``, a step also carries a
-    state within a segment: ``loss_iters(u, precond, carry)`` returns (loss,
-    iterations, next carry), and each segment starts from ``carry0()`` (the
-    warm-started CG's solutions, reset where the basis is rebuilt, as
-    gpim_tpu's ``_train_seg`` starts each segment from zeros). A segment
-    of 2 steps comes first, then
-    each is twice as long (up to 10) while the last step needed
-    at most 8 CG iterations, and half as long (at least 2) when it needed 16
-    or more; the host reads that one value a segment.
+    gpim_tpu/gpreg/ski_model.py:209-245), by the steps of :func:`_adam`.
+    ``build_precond(u)`` returns the preconditioner a segment uses and
+    ``loss_iters(u, precond)`` the loss and its realized CG iterations.
+    With ``carry0``, a step also carries a state within a segment:
+    ``loss_iters(u, precond, carry)`` returns (loss, iterations, next
+    carry), and each segment starts from ``carry0()`` (the warm-started
+    CG's solutions, reset where the basis is rebuilt, as gpim_tpu's
+    ``_train_seg`` starts each segment from zeros). A segment of 2 steps
+    comes first, then each is twice as long (up to 10) while the last step
+    needed at most 8 CG iterations, and half as long (at least 2) when it
+    needed 16 or more; the host reads that one value a segment.
 
     Returns (final u, raw trajectory {key: (iterations, ...)}, losses,
-    realized CG iterations (iterations,) on the device, segment lengths):
-    the post-update parameters and the pre-update loss of every step, as
-    :func:`adam_steps` records them; the Adam moments carry across
-    segments. Spans (:mod:`gpim_tpu_torch.utils.profiling`): ``adam.init``
-    around the optimizer's construction, ``ski.segment`` a segment (its
-    ``steps``), ``ski.precond`` its preconditioner build, ``adam.step`` a
-    step, and the wait ``segment`` around the one read.
+    realized CG iterations (iterations,) on the device, segment lengths);
+    the Adam moments carry across segments. Spans
+    (:mod:`gpim_tpu_torch.utils.profiling`): ``ski.segment`` a segment (its
+    ``steps``), ``ski.precond`` its preconditioner build, and the wait
+    ``segment`` around the one read, besides :func:`_adam`'s.
     """
-    u = {k: v.detach().clone().requires_grad_(True) for k, v in u0.items()}
-    with profiling.span("adam.init"):
-        opt = torch.optim.Adam(list(u.values()), lr=lr)
-    first = next(iter(u.values()))
-    losses = torch.empty((iterations,), dtype=first.dtype,
-                         device=first.device)
+    u, step, u_traj, losses = _adam(u0, lr, iterations)
     its = torch.empty_like(losses)
-    u_traj = {k: torch.empty((iterations,) + tuple(v.shape), dtype=v.dtype,
-                             device=first.device) for k, v in u.items()}
     segments = []
     i, s_next = 0, 2
     while i < iterations:
@@ -498,20 +506,9 @@ def adam_segments(u0, lr, iterations, build_precond, loss_iters,
         with profiling.span("ski.segment", steps=s):
             with profiling.span("ski.precond"):
                 precond = build_precond(u)
-            carry = None if carry0 is None else carry0()
+            carry = [] if carry0 is None else [carry0()]
             for _ in range(s):
-                with profiling.span("adam.step"):
-                    opt.zero_grad(set_to_none=True)
-                    if carry0 is None:
-                        loss, it = loss_iters(u, precond)
-                    else:
-                        loss, it, carry = loss_iters(u, precond, carry)
-                    loss.backward()
-                    opt.step()
-                    with torch.no_grad():
-                        losses[i], its[i] = loss, it
-                        for k, v in u.items():
-                            u_traj[k][i] = v
+                carry = step(i, its, loss_iters, precond, *carry)
                 i += 1
             segments.append(s)
             with profiling.wait("segment"):
@@ -610,18 +607,16 @@ def predict_vfe(u, X, y, mask, bounds, jitter, Xtest_chunks, *,
     eye = torch.eye(Xu.shape[0], dtype=X.dtype, device=X.device)
     Kmm = kfn(p, Xu, Xu) + jitter * eye
     Kmn = kfn(p, Xu, X) * mask[None, :]
-    Lm, info_m = safe_cholesky(Kmm)
-    # one explicit inverse each: every per-chunk triangular solve below
-    # becomes a gemm
-    Vm = tri_inverse(Lm)
+    # one explicit inverse each of Kmm's and B's factors: every per-chunk
+    # triangular solve below becomes a gemm
+    Vm, info_m = chol_and_inverse(Kmm)[1:]
     A = (Vm @ Kmn) / torch.sqrt(noise)
     del Kmn
     m = A.shape[0]
     sums = all_reduce(torch.cat([(A @ A.T).reshape(-1), A @ (y * mask)]),
                       group)
     del A
-    LB, info_b = safe_cholesky(eye + sums[:m * m].reshape(m, m))
-    VB = tri_inverse(LB)
+    VB, info_b = chol_and_inverse(eye + sums[:m * m].reshape(m, m))[1:]
     c = (VB @ sums[m * m:]) / torch.sqrt(noise)
     n_chunks, chunk = Xtest_chunks.shape[:2]
     means = torch.empty((n_chunks, chunk), dtype=X.dtype, device=X.device)

@@ -19,8 +19,8 @@ Kronecker multitask model.
   closed-form backward (:class:`_KronMTCore`).
 
 Prediction is the closed-form mean and variance, chunk by chunk over the
-test grid. Training is :func:`engine.adam_steps`, the exact model's
-sync-free Adam loop.
+test grid. Training is :func:`engine.adam_steps`, the sync-free Adam loop
+that every model trains through.
 """
 
 import math
@@ -33,7 +33,7 @@ from gpim_tpu_torch.kernels.functional import get_kernel_fn, kernel_diag
 from gpim_tpu_torch.kernels.transforms import (
     interval_forward, interval_log_jacobian, positive_forward)
 from gpim_tpu_torch.ops.linalg import safe_cholesky
-from gpim_tpu_torch.ops.tri import tri_gram, tri_inverse
+from gpim_tpu_torch.ops.tri import chol_and_inverse, tri_gram, tri_inverse
 from gpim_tpu_torch.parallel.distributed import (
     all_gather, all_reduce, reduce_from_shards)
 
@@ -144,10 +144,8 @@ def predict_independent(u, X, Y, mask, bounds, jitter, Xtest_chunks, *,
     kfn = get_kernel_fn(kernel)
     p = _constrain_task(u, bounds)
     kp = _batched(p)
-    L, info = safe_cholesky(_masked_gram(kfn, p, X, mask, jitter))
     # one explicit L^-1 a channel turns every per-chunk solve into a gemm
-    V = tri_inverse(L)
-    del L
+    V, info = chol_and_inverse(_masked_gram(kfn, p, X, mask, jitter))[1:]
     ym = (Y.mT - p["mean"][:, None]) * mask
     alpha = V.mT @ (V @ ym[..., None])                # (T, n, 1)
     n_chunks, chunk = Xtest_chunks.shape[:2]
@@ -193,18 +191,14 @@ def _task_cov(p):
 
 def _decouple(Kx, B, noise, Yc, tasks=slice(None)):
     """Rotate the task basis by eigh(B): A = Kx (x) B + noise I becomes T
-    systems A_t = lam_t Kx + noise I, factorised by one batched Cholesky.
-    Returns (lam, Qb, L, info, Yt, at): the eigenvalues (clamped at 1e-12)
-    and eigenvectors of B, the factors (T_s, n, n) and their status (T_s,)
-    of the rotated tasks ``tasks`` (a slice; all by default), the rotated
-    targets Yt (T, n) and at = A_t^-1 Yt_t (T_s, n) of those tasks."""
+    systems A_t = lam_t Kx + noise I. Returns (lam, Qb, A_s, Yt): the
+    eigenvalues (clamped at 1e-12) and eigenvectors of B, the systems
+    (T_s, n, n) of the rotated tasks ``tasks`` (a slice; all by default)
+    and the rotated targets Yt (T, n)."""
     lam, Qb = torch.linalg.eigh(B)
     lam = lam.clamp_min(1e-12)
-    Yt = (Yc @ Qb).mT
     eye = torch.eye(Kx.shape[-1], dtype=Kx.dtype, device=Kx.device)
-    L, info = safe_cholesky(lam[tasks, None, None] * Kx + noise * eye)
-    at = torch.cholesky_solve(Yt[tasks, :, None], L)[..., 0]
-    return lam, Qb, L, info, Yt, at
+    return lam, Qb, lam[tasks, None, None] * Kx + noise * eye, (Yc @ Qb).mT
 
 
 class _KronMTCore(torch.autograd.Function):
@@ -235,7 +229,9 @@ class _KronMTCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, Kx, B, noise, Yc, tasks, group):
-        lam, Qb, L, info, Yt, at = _decouple(Kx, B, noise, Yc, tasks)
+        lam, Qb, A, Yt = _decouple(Kx, B, noise, Yc, tasks)
+        L, info = safe_cholesky(A)
+        at = torch.cholesky_solve(Yt[tasks, :, None], L)[..., 0]
         out = (0.5 * (Yt[tasks] * at).sum()
                + torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum())
         at_all = all_gather(at, group, dim=0)
@@ -313,10 +309,13 @@ def predict_correlated(u, X, Y, bounds, jitter, Xtest_chunks, *, kernel,
     share of both sums, all-reduced once over ``group``."""
     kfn = get_kernel_fn(kernel)
     p = _constrain_corr(u, bounds)
-    lam, Qb, L, info, _, alphas = _decouple(
-        kfn(p, X, X), _task_cov(p), p["noise"] + jitter,
-        Y - p["mean"][None, :], tasks)
-    V = tri_inverse(L)
+    lam, Qb, A, Yt = _decouple(kfn(p, X, X), _task_cov(p),
+                               p["noise"] + jitter, Y - p["mean"][None, :],
+                               tasks)
+    # one explicit L^-1 a rotated task turns every per-chunk solve into a
+    # gemm
+    L, V, info = chol_and_inverse(A)
+    alphas = torch.cholesky_solve(Yt[tasks, :, None], L)[..., 0]
     del L
     n_chunks, chunk = Xtest_chunks.shape[:2]
     T = Y.shape[1]

@@ -22,8 +22,7 @@ from gpim_tpu_torch.gpreg import engine
 from gpim_tpu_torch.kernels.functional import spectral_mixture
 from gpim_tpu_torch.kernels.transforms import (
     positive_forward, positive_inverse)
-from gpim_tpu_torch.ops.linalg import safe_cholesky
-from gpim_tpu_torch.ops.tri import tri_inverse
+from gpim_tpu_torch.ops.tri import chol_and_inverse
 
 __all__ = ["init_spectral_params", "train_spectral", "predict_spectral"]
 
@@ -99,12 +98,8 @@ def predict_spectral(u, X, y, mask, jitter, Xtest_chunks, *,
     (``Xtest_chunks`` (n_chunks, chunk, d)); one explicit inverse factor
     turns every chunk's triangular solve into a gemm."""
     p = _constrain_sm(u)
-    A = engine._masked_system(spectral_mixture(p, X, X), p["noise"], mask,
-                              jitter)
-    L, info = safe_cholesky(A)
-    del A
-    V = tri_inverse(L)
-    del L
+    V, info = chol_and_inverse(engine._masked_system(
+        spectral_mixture(p, X, X), p["noise"], mask, jitter))[1:]
     alpha = V.T @ (V @ ((y - p["mean"]) * mask))
     kss = p["weights"].sum()
     n_chunks, chunk = Xtest_chunks.shape[:2]

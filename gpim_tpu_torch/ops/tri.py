@@ -39,14 +39,16 @@ The blocked route is taken only where no gradient is asked of its input
 the library calls. Each function counts its blocked runs in a plain int
 attribute (``tri_inverse.blocked``, ``tri_gram.blocked``).
 
-``chol_and_inverse`` gives the factor and ``V`` together, the pair the
-exact GP's loss and prediction need. At n <= 128 (BO's padded order) on
-the card, with no gradient asked, that is K5 (``gram_kernels.chol_inverse``,
-counted by ``chol_inverse.launches``): one block factors the matrix and
-inverts the factor in shared memory, one launch where ``cholesky_ex`` and
+``chol_and_inverse`` is the one entry of every site that factors a matrix
+and inverts the factor (the exact GP's loss and prediction, the VFE's Kmm,
+its predictor's B, the multi-output and spectral predictions), so the
+choice of kernel is made here alone. At n <= 128 (BO's padded order) on the card,
+with no gradient asked, that is K5 (``gram_kernels.chol_inverse``, counted
+by ``chol_inverse.launches``): one block factors the matrix and inverts
+the factor in shared memory, one launch where ``cholesky_ex`` and
 ``solve_triangular`` took ~90 us in float64. Above 128 a float64 matrix no
 longer fits one block, and the library Cholesky and ``tri_inverse`` stay;
-so do CPU tensors, bit for bit.
+so do CPU tensors and inputs that ask for a gradient, bit for bit.
 """
 
 import torch
@@ -246,4 +248,5 @@ def chol_and_inverse(A):
             and not (torch.is_grad_enabled() and A.requires_grad)):
         return gram_kernels.chol_inverse(A.contiguous())
     L, info = safe_cholesky(A)
+    del A           # a caller's temporary is freed before the inverse
     return L, tri_inverse(L), info

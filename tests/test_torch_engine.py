@@ -230,3 +230,27 @@ def test_failed_cholesky_raises_after_training():
         engine.train(_torch(u), torch.as_tensor(X), torch.as_tensor(y),
                      torch.as_tensor(mask), _torch(bounds), 0.1, -50.0,
                      kernel="RBF", iterations=3)
+
+
+@pytest.mark.parametrize("loop", ["adam_steps", "adam_segments"])
+def test_adam_step_as_a_no_op_leaves_the_parameters(monkeypatch, loop):
+    """With ``torch.optim.Adam.step`` patched to a no-op (what
+    ``gpbench``'s ``adam_unchanged`` fault does), both Adam loops return
+    ``u0``, record it at every step and the same loss throughout: nothing
+    but the optimizer's step moves the parameters. Unpatched, they move."""
+    u0 = {"x": torch.tensor([1.0, -2.0], dtype=torch.float64)}
+    sq = lambda u: (u["x"] ** 2).sum()  # noqa: E731
+
+    def run():
+        if loop == "adam_steps":
+            return engine.adam_steps(lambda u: (sq(u), None), u0, 0.1, 5,
+                                     factors=())
+        return engine.adam_segments(u0, 0.1, 5, lambda u: None,
+                                    lambda u, pre: (sq(u), torch.tensor(4.)))
+    moved = run()[0]["x"]
+    assert not torch.equal(moved, u0["x"])
+    monkeypatch.setattr(torch.optim.Adam, "step", lambda self, *a, **k: None)
+    u, u_traj, losses = run()[:3]
+    assert torch.equal(u["x"], u0["x"])
+    assert torch.equal(u_traj["x"], u0["x"].expand(5, 2))
+    assert torch.equal(losses, torch.full((5,), 5.0, dtype=torch.float64))

@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from gpim_tpu_torch.gpreg import engine
+from gpim_tpu_torch.gpreg import engine, multi, structured
 from gpim_tpu_torch.ops import gram_kernels as gk
 from gpim_tpu_torch.ops import linalg, tri
 
@@ -386,6 +386,63 @@ def test_predict_exact_through_k5_route(monkeypatch, k5_spy):
     assert k5_spy == [(128, 128)]
     np.testing.assert_allclose(mean_k5, mean_lib, rtol=0, atol=1e-10)
     np.testing.assert_allclose(sd_k5, sd_lib, rtol=0, atol=1e-10)
+
+
+def _predict_case(model):
+    """A call of ``model``'s predictor on a small float64 problem whose
+    factorisations are all of order <= 128, and their shapes as K5 sees
+    them."""
+    g = np.random.RandomState(3)
+    n, m, T, d = 60, 24, 3, 2
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64))  # noqa: E731
+    X = t(g.rand(n, d) * 8.0)
+    mask = t((np.arange(n) < 50).astype(float))
+    Xtest = t(g.rand(2, 32, d) * 8.0)
+    y = torch.sin(X[:, 0] / 2.0) * torch.cos(X[:, 1] / 3.0) * mask
+    ls_b = {"ls_lo": t(np.zeros(d)), "ls_hi": t(np.full(d, 6.0))}
+    if model == "vfe":
+        u = {"lengthscale": t([-0.3, -0.5]), "variance": t(0.3),
+             "noise": t(-3.0), "Xu": X[::n // m][:m] + 0.05}
+        bounds = dict(ls_b, var_lo=t(1e-4), var_hi=t(10.0))
+        return (lambda: engine.predict_vfe(u, X, y, mask, bounds, 1e-6,
+                                           Xtest, kernel="RBF"),
+                [(m, m), (m, m)])
+    if model == "independent":
+        Y = torch.stack([y * (1.0 + k) + 0.1 * k for k in range(T)], -1)
+        u = {"lengthscale": t(-0.4 + 0.2 * g.randn(T, d)),
+             "outputscale": t(0.1 * g.randn(T)),
+             "noise": t(-3.0 + 0.2 * g.randn(T)), "mean": t(0.1 * g.randn(T))}
+        return (lambda: multi.predict_independent(
+            u, X, Y, mask, ls_b, 1e-6, Xtest, kernel="RBF"), [(T, n, n)])
+    if model == "correlated":
+        Y = torch.stack([y * (1.0 + k) for k in range(T)], -1)
+        u = {"lengthscale": t([0.2, 0.3]), "noise": t(-3.0),
+             "mean": t(0.1 * g.rand(T)), "F": t(g.rand(T, 1)),
+             "task_var": t(-0.4 + 0.3 * g.randn(T))}
+        return (lambda: multi.predict_correlated(
+            u, X, Y, ls_b, 1e-6, Xtest, kernel="RBF"), [(T, n, n)])
+    u = structured.init_spectral_params(X.numpy()[:50], y.numpy()[:50], 2,
+                                        0, np.float64, "cpu")
+    return (lambda: structured.predict_spectral(u, X, y, mask, 1e-6, Xtest),
+            [(n, n)])
+
+
+@pytest.mark.parametrize("model",
+                         ["vfe", "independent", "correlated", "spectral"])
+def test_predict_through_k5_route(monkeypatch, k5_spy, model):
+    """``predict_vfe`` (Kmm and B), ``predict_independent`` at 3 tasks,
+    ``predict_correlated`` at 3 rotated tasks and ``predict_spectral``, at
+    orders <= 128, take K5's route (its plain version on the CPU) once a
+    factorisation and predict the library pair's mean and sd."""
+    predict, shapes = _predict_case(model)
+    mean_lib, var_lib = predict()
+    assert k5_spy == []
+    monkeypatch.setattr(tri, "_KERNEL_DEVICES", ("cpu", "cuda"))
+    mean_k5, var_k5 = predict()
+    assert k5_spy == shapes
+    torch.testing.assert_close(mean_k5, mean_lib, rtol=0, atol=1e-10)
+    torch.testing.assert_close(var_k5.sqrt(), var_lib.sqrt(), rtol=0,
+                               atol=1e-10)
 
 
 @pytest.mark.cuda
